@@ -1,4 +1,5 @@
-"""The CUDA fold kernel against its plain version, on the card.
+"""The CUDA kernels (the fold and the fused round) against their plain
+versions, on the card.
 
 Marked ``cuda``: each test skips without a card (decided inside the
 fixture, never at import). The card machine has no JAX, so run this file
@@ -19,6 +20,8 @@ from ue22cs343bb1_openmp_assignment_tpu_torch import convert
 from ue22cs343bb1_openmp_assignment_tpu_torch.config import SystemConfig
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
     deep_fold_kernel as dfk)
+from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
+    deep_round_kernel as drk)
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import sync_engine as se
 
 pytestmark = pytest.mark.cuda
@@ -88,3 +91,52 @@ def test_wrapper_refuses_bad_operands(card):
         dfk.fold_replay(*args[:6], bad, args[7])
     with pytest.raises(ValueError, match="int32"):
         dfk.fold_replay(*args[:6], args[6].to(torch.int64), args[7])
+
+
+@pytest.mark.parametrize("kw", [
+    {}, dict(proc_local_permille=300, deep_waves=3),
+    dict(proc_local_permille=500, deep_exact_flags=False)],
+    ids=["waves1", "waves3", "noexact"])
+def test_round_kernel_equals_plain_round(card, kw):
+    cfg = _cfg(1000, fused_round=True, **kw)   # 8 blocks, not a multiple
+    st = se.run_rounds(cfg, se.procedural_state(cfg, 4096, device=card), 6,
+                       fold_impl="plain")
+    args = drk.round_inputs(cfg, st)
+    before = drk.fused_round.launches
+    got = drk.fused_round(*args)
+    assert drk.fused_round.launches == before + 1
+    for a, b in zip(got, drk.plain_round(*args)):
+        assert torch.equal(a, b)
+
+
+def test_round_kernel_rounds_equal_fold_path_and_cpu(card):
+    cfg = _cfg(128, proc_local_permille=500, deep_waves=2)
+    fused = dataclasses.replace(cfg, fused_round=True)
+    f = se.procedural_state(cfg, 4096, seed=3, device=card)
+    k, c = f, se.procedural_state(cfg, 4096, seed=3, device="cpu")
+    for _ in range(5):
+        f = se.round_step(fused, f)
+        k = se.round_step(cfg, k)
+        c = se.round_step(fused, c)
+    want = convert.to_numpy(c)
+    for st in (f, k):
+        got = convert.to_numpy(st)
+        for name in want:
+            assert (want[name] == got[name]).all(), name
+
+
+def test_round_wrapper_refuses_bad_operands(card):
+    cfg = _cfg(256, fused_round=True)
+    args = drk.round_inputs(cfg, se.procedural_state(cfg, 64, device=card))
+    bad = list(args)
+    bad[7] = args[7].to(torch.int64)                 # w_val
+    with pytest.raises(ValueError, match="int32"):
+        drk.fused_round(*bad)
+    bad = list(args)
+    bad[4] = args[4].T.contiguous().T                # cache_val
+    with pytest.raises(ValueError, match="contiguous"):
+        drk.fused_round(*bad)
+    bad = list(args)
+    bad[2] = args[2][:-7]                            # dm
+    with pytest.raises(ValueError, match="dm"):
+        drk.fused_round(*bad)

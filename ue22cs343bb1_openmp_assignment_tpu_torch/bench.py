@@ -2,17 +2,22 @@
 
     python -m ue22cs343bb1_openmp_assignment_tpu_torch.bench [--nodes N]
         [--trace-len L] [--chunk K] [--reps R] [--fold-impl kernel|plain]
-        [--profile ROUNDS] [--device cuda|cpu]
+        [--fused-round auto|on|off] [--profile ROUNDS] [--device cuda|cpu]
 
 Runs the deep-window transactional engine at the JAX ``bench.py``'s deep
 defaults (4096 nodes, 4096 procedural-uniform instructions per node,
 locality 0.8, drain_depth 13, txn_width 3, deep_slots 3, one owner-value
 slot, slack 4, one wave, exact flags, chunk 64) to quiescence: one
 discarded warm-up, then the median of ``--reps`` runs, each clock stop
-after ``torch.cuda.synchronize()``. The JSON line carries instrs/sec,
-rounds, ms/round, the card's name and power limit and the fold kernel's
-launch counts of one run. ``--profile R`` adds a torch.profiler window
-of R rounds: device-busy share and device time by kernel.
+after ``torch.cuda.synchronize()``. ``--fused-round`` selects the round:
+the whole round as one kernel (``ops/deep_round_kernel``) or the fold
+path (three fold kernels around the plain round middle); ``auto``, the
+default, takes the fused round on a card where ``supported(cfg)`` holds,
+as the JAX ``bench.py`` does on a TPU. The JSON line carries instrs/sec,
+rounds, ms/round, the card's name and power limit, which round ran and
+the kernels' launch counts of one run. ``--profile R`` adds a
+torch.profiler window of R rounds: device-busy share, device launches
+and device time by kernel.
 """
 
 from __future__ import annotations
@@ -30,6 +35,8 @@ import torch
 from ue22cs343bb1_openmp_assignment_tpu_torch.config import SystemConfig
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
     deep_fold_kernel as dfk)
+from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
+    deep_round_kernel as drk)
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import sync_engine as se
 
 
@@ -41,6 +48,30 @@ def deep_config(nodes: int) -> SystemConfig:
         cfg, deep_window=True, deep_slots=2 if nodes >= 32768 else 3,
         deep_ownerval_slots=1, deep_horizon_slack=4, procedural="uniform",
         max_instrs=1, proc_local_permille=800)
+
+
+def reset_launch_counts() -> None:
+    dfk.reset_launch_counts()
+    drk.fused_round.launches = 0
+
+
+def launch_counts() -> dict:
+    """Launches of every kernel of the port since the last reset."""
+    return dict(dfk.launch_counts(), round=drk.fused_round.launches)
+
+
+def with_fused_round(cfg: SystemConfig, mode: str,
+                     device: torch.device) -> SystemConfig:
+    """``cfg`` with ``fused_round`` set as ``--fused-round`` asks: on,
+    off, or ``auto`` (on for a card and a supported config)."""
+    ok = drk.supported(cfg)
+    want = mode == "on" or (mode == "auto" and device.type == "cuda"
+                            and ok)
+    if mode == "on" and not ok:
+        print("note: --fused-round on needs a supported config (no read "
+              "storm); measuring the fold path instead", file=sys.stderr)
+        want = False
+    return dataclasses.replace(cfg, fused_round=want)
 
 
 def card_name_and_limit(device: torch.device) -> str:
@@ -90,11 +121,14 @@ def profile_rounds(cfg, st, rounds: int, fold_impl: str) -> dict:
         by_name[name] = (tot + us, n + 1)
     busy_us = sum(us for _, us in events)
     fold_us = sum(us for name, us in events if "deep_fold_kernel" in name)
+    round_us = sum(us for name, us in events
+                   if "deep_round_kernel" in name)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     return {"rounds": rounds, "wall_ms_per_round": wall * 1e3 / rounds,
             "device_busy_ms_per_round": busy_us / 1e3 / rounds,
             "device_idle_share": 1 - busy_us / 1e6 / wall,
             "fold_kernel_ms_per_round": fold_us / 1e3 / rounds,
+            "round_kernel_ms_per_round": round_us / 1e3 / rounds,
             "device_launches_per_round": len(events) / rounds,
             "top_kernels": [{"name": k[:80], "ms_per_round":
                              us / 1e3 / rounds, "calls_per_round":
@@ -109,21 +143,23 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--fold-impl", choices=["kernel", "plain"],
                     default="kernel")
+    ap.add_argument("--fused-round", choices=["auto", "on", "off"],
+                    default="auto")
     ap.add_argument("--profile", type=int, default=0, metavar="ROUNDS")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    cfg = deep_config(args.nodes)
     dev = torch.device(args.device)
+    cfg = with_fused_round(deep_config(args.nodes), args.fused_round, dev)
 
     def one_run():
         st = se.procedural_state(cfg, args.trace_len, device=dev)
         _sync(dev)
-        dfk.reset_launch_counts()
+        reset_launch_counts()
         t0 = time.perf_counter()
         st = se.run_sync_to_quiescence(cfg, st, args.chunk,
                                        fold_impl=args.fold_impl)
         _sync(dev)
-        return time.perf_counter() - t0, st, dfk.launch_counts()
+        return time.perf_counter() - t0, st, launch_counts()
 
     one_run()                                   # warm-up, discarded
     runs = [one_run() for _ in range(args.reps)]
@@ -138,7 +174,8 @@ def main(argv=None) -> int:
            "rounds": rounds, "ms_per_round": wall * 1e3 / rounds,
            "wall_s": wall, "reps_s": [r[0] for r in runs],
            "instrs_retired": retired, "card": card_name_and_limit(dev),
-           "fold_impl": args.fold_impl, "launches": launches,
+           "fold_impl": args.fold_impl, "fused_round": cfg.fused_round,
+           "launches": launches,
            "config": {"nodes": args.nodes, "trace_len": args.trace_len,
                       "chunk": args.chunk, "deep_slots": cfg.deep_slots}}
     if args.profile:

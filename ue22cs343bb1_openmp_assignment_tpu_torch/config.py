@@ -149,16 +149,14 @@ class SystemConfig:
     # it on automatically when a TPU backend is attached.
     pallas_burst: bool = False
 
-    # Execute the ENTIRE deep-engine round as one fused Pallas kernel
-    # (ops.pallas_round): window folds, arbitration, handler effects
-    # and fan-out in a single pallas_call with directory/cache/slot
-    # state resident in VMEM, index ops routed through exact one-hot
-    # MXU matmuls. Bit-identical to the XLA path on supported configs
-    # (pallas_round.supported — no read-storm, deep_slots * num_nodes
-    # under the scatter-min margin); round_step falls back to the XLA
-    # reference path otherwise. OFF by default for the same reason as
-    # pallas_burst (CPU fallback is the interpreter); bench.py exposes
-    # it as --fused-round.
+    # Execute the ENTIRE deep-engine round as one kernel: in the port,
+    # the cooperative CUDA kernel of ops.deep_round_kernel (window
+    # folds, arbitration, composition and fan-out between grid-wide
+    # barriers, state in device memory); in the JAX package, the fused
+    # Pallas kernel. Bit-identical to the fold path on supported
+    # configs (deep_round_kernel.supported — no read-storm); round_step
+    # runs the fold path otherwise. The config default is off; the
+    # port's bench turns it on for the card (--fused-round auto).
     fused_round: bool = False
 
     # Coherence protocol variant. 'mesi' is the reference protocol and

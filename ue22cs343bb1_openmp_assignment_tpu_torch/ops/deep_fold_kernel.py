@@ -12,36 +12,22 @@ or raises; it never falls back. For a CPU tensor it runs the plain
 version, ``deep_engine._fold_deep`` restricted to the same outputs.
 Each wrapper counts its launches in ``<wrapper>.launches``.
 
-Building: the source is compiled with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, loaded with ctypes. The config
-shapes and branches are ``-D`` defines, so there is one library per
-(C, S, Q, G, W, waves, storm) combination, cached under
-``build/torch_kernels/`` by a hash of the source, the defines and the
-flags, and built at first use.
+Building: ``csrc/deep_fold.cu`` holds the three thin kernels around the
+fold body in ``csrc/deep_fold.cuh`` (which the fused round kernel shares);
+``ops/kernel_build`` compiles it, one library per (C, S, Q, G, W, waves,
+storm) combination, at first use.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
-import hashlib
-import os
-import pathlib
-import re
-import subprocess
-import time
 
 import torch
 
 from ue22cs343bb1_openmp_assignment_tpu_torch.config import SystemConfig
+from ue22cs343bb1_openmp_assignment_tpu_torch.ops import kernel_build
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops.deep_engine import (
     F_MARK, F_POISON, _fold_deep)
-
-_PKG = pathlib.Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "deep_fold.cu"
-BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def defines(cfg: SystemConfig) -> tuple:
@@ -59,96 +45,7 @@ def defines(cfg: SystemConfig) -> tuple:
             ("DF_STORM", int(cfg.deep_read_storm)))
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    return path if os.path.exists(path) else "nvcc"
-
-
-@functools.lru_cache(maxsize=None)
-def _paths(defs: tuple):
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(repr((defs, NVCC_FLAGS)).encode())
-    stem = BUILD_DIR / f"deep_fold-{h.hexdigest()[:16]}"
-    return stem.with_suffix(".so"), stem.with_suffix(".ptxas.txt")
-
-
-def library_path(cfg: SystemConfig) -> pathlib.Path:
-    """Where the kernel library for ``cfg`` is (or will be) built."""
-    return _paths(defines(cfg))[0]
-
-
-def _command(defs: tuple, out: pathlib.Path) -> list:
-    return ([_nvcc(), *NVCC_FLAGS]
-            + [f"-D{k}={v}" for k, v in defs]
-            + ["-o", str(out), str(SOURCE)])
-
-
-def build(cfgs) -> dict:
-    """Build the libraries for ``cfgs`` that are not cached yet, one
-    nvcc process per library, all started together. Returns
-    {defines: seconds} for the libraries built here. Raises on a
-    failed build with the compiler's output."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = {}
-    for cfg in cfgs:
-        defs = defines(cfg)
-        so, _ = _paths(defs)
-        if defs in jobs or so.exists():
-            continue
-        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-        proc = subprocess.Popen(_command(defs, tmp), stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        jobs[defs] = (proc, tmp, time.perf_counter())
-    took, errors = {}, []
-    for defs, (proc, tmp, t0) in jobs.items():
-        log, _ = proc.communicate()
-        took[defs] = time.perf_counter() - t0
-        so, ptxas = _paths(defs)
-        if proc.returncode != 0:
-            errors.append(f"nvcc failed for {dict(defs)}:\n{log}")
-            continue
-        ptxas.write_text(log)
-        os.replace(tmp, so)
-    if errors:
-        raise RuntimeError("\n".join(errors))
-    return took
-
-
-def ptxas_summary(cfg: SystemConfig) -> dict:
-    """{mode: {"registers", "stack", "spill_stores", "spill_loads"}}
-    from what ``nvcc -Xptxas -v`` said when the library for ``cfg`` was
-    built (the kernel template is instantiated once per mode: 0 pre,
-    1 flags, 2 replay); empty if it was not built here."""
-    _, ptxas = _paths(defines(cfg))
-    report = ptxas.read_text() if ptxas.exists() else ""
-    modes = {"0": "pre", "1": "flags", "2": "replay"}
-    out, mode = {}, None
-    for line in report.splitlines():
-        m = re.search(r"Compiling entry function '.*deep_fold_kernelILi(\d)E",
-                      line)
-        if m:
-            mode = modes[m.group(1)]
-            out[mode] = {}
-            continue
-        if mode is None:
-            continue
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                      r"(\d+) bytes spill loads", line)
-        if m:
-            out[mode].update(stack=int(m.group(1)),
-                             spill_stores=int(m.group(2)),
-                             spill_loads=int(m.group(3)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            out[mode]["registers"] = int(m.group(1))
-    return out
-
-
-@functools.lru_cache(maxsize=None)
-def _library(defs: tuple) -> ctypes.CDLL:
-    so, _ = _paths(defs)
-    lib = ctypes.CDLL(str(so))
+def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.deep_fold_pre.argtypes = [p] * 13 + [i, p]
     lib.deep_fold_flags.argtypes = [p] * 13 + [i, p]
@@ -156,26 +53,14 @@ def _library(defs: tuple) -> ctypes.CDLL:
     for fn in (lib.deep_fold_pre, lib.deep_fold_flags,
                lib.deep_fold_replay):
         fn.restype = ctypes.c_int
-    return lib
 
 
-@functools.lru_cache(maxsize=None)
-def library(cfg: SystemConfig) -> ctypes.CDLL:
-    """The loaded kernel library for ``cfg``, built if not cached."""
-    defs = defines(cfg)
-    if not _paths(defs)[0].exists():
-        build([cfg])
-    return _library(defs)
-
-
-def _check(name, t, rows, n, device):
-    if t.device != device or t.dtype != torch.int32 \
-            or tuple(t.shape) != (rows, n) or not t.is_contiguous():
-        raise ValueError(
-            f"deep fold kernel: {name} must be a contiguous int32 "
-            f"[{rows}, {n}] tensor on {device}, got {t.dtype} "
-            f"{tuple(t.shape)} on {t.device}"
-            f"{'' if t.is_contiguous() else ' (not contiguous)'}")
+#: the kernel template is instantiated once per mode: 0 pre, 1 flags,
+#: 2 replay
+LIBRARY = kernel_build.Library(
+    "deep_fold", "deep_fold.cu", ("deep_fold.cuh",), defines, _bind,
+    {r"deep_fold_kernelILi0E": "pre", r"deep_fold_kernelILi1E": "flags",
+     r"deep_fold_kernelILi2E": "replay"})
 
 
 def io_rows(cfg: SystemConfig, mode: str):
@@ -216,10 +101,11 @@ def launch(mode: str, cfg: SystemConfig, st, tiles, w_oa, w_val, w_live,
             ("horizon", st.horizon[None, :], 1)]
     ins += [(name, t, rows) for (name, rows), t in zip(extra_rows, extra)]
     for name, t, rows in ins:
-        _check(name, t, rows, N, dev)
+        kernel_build.check_operand("deep fold kernel", name, t, (rows, N),
+                                   dev)
     outs = [torch.empty((rows, N), dtype=torch.int32, device=dev)
             for rows in io_rows(cfg, mode)[1]]
-    fn = getattr(library(cfg), f"deep_fold_{mode}")
+    fn = getattr(LIBRARY.load(cfg), f"deep_fold_{mode}")
     err = fn(*[ctypes.c_void_p(t.data_ptr()) for _, t, _ in ins],
              *[ctypes.c_void_p(t.data_ptr()) for t in outs],
              ctypes.c_int(N),

@@ -331,18 +331,24 @@ def _round_key_rs(cfg: SystemConfig, round_, seed, rows: torch.Tensor):
 
 def round_step(cfg: SystemConfig, st: SyncState,
                fold_impl: str = "kernel") -> SyncState:
-    """One transactional round. Deep-window configs run
-    ``deep_engine.round_step_deep`` (``fold_impl`` as there); the
-    txn_width == 1 and multi-transaction rounds are a later slice.
-
-    ``cfg.fused_round`` selects the JAX package's whole-round TPU kernel,
-    which is bit-identical to the fold path run here; its Hopper port is
-    the next slice, so the flag does not change what runs."""
+    """One transactional round. Deep-window configs run the whole round
+    as one kernel (``deep_round_kernel.round_step_deep_fused``) under
+    ``cfg.fused_round`` where ``deep_round_kernel.supported(cfg)``
+    holds, as the JAX package dispatches to its fused TPU kernel, and
+    ``deep_engine.round_step_deep`` otherwise. ``fold_impl="plain"``
+    runs either path's plain version on any device. The txn_width == 1
+    and multi-transaction rounds are a later slice."""
     if not cfg.deep_window:
         raise NotImplementedError(
             "only the deep-window round (cfg.deep_window) is ported; the "
             "txn_width == 1 and multi-transaction rounds are slice 3 of "
             "the port (ROADMAP.md)")
+    if cfg.fused_round:
+        from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
+            deep_round_kernel)
+        if deep_round_kernel.supported(cfg):
+            return deep_round_kernel.round_step_deep_fused(cfg, st,
+                                                           fold_impl)
     from ue22cs343bb1_openmp_assignment_tpu_torch.ops.deep_engine import (
         round_step_deep)
     return round_step_deep(cfg, st, fold_impl=fold_impl)
