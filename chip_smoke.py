@@ -6,10 +6,11 @@
 Phases (each prints its own line; any failure exits non-zero):
 
 1. device: nvidia-smi name and power limit, torch and CUDA versions;
-2. build: the deep-window fold kernel (csrc/deep_fold.cu) and the fused
-   round kernel (csrc/deep_round.cu) for every config used below, one
-   nvcc per library, all started together; ptxas registers and spill
-   bytes;
+2. build: the deep-window fold kernel (csrc/deep_fold.cu), the fused
+   round kernel (csrc/deep_round.cu) and the sync window engine's
+   window/replay and burst kernels (csrc/sync_window.cu,
+   csrc/sync_burst.cu) for every config used below, one nvcc per
+   library, all started together; ptxas registers and spill bytes;
 3. kernel vs plain: each fold mode (pre, flags, replay) and the round
    kernel on inputs taken mid-run (after 8 rounds of deep@4096), kernel
    against its plain PyTorch version on the same tensors, bit for bit;
@@ -30,7 +31,21 @@ Phases (each prints its own line; any failure exits non-zero):
    after: every kernel of the path launched, none of the other path's;
    equal round counts and equal final states, exact-directory
    invariant; then 8 rounds of each path at 65536 nodes with
-   deep_slots=2, equal states.
+   deep_slots=2, equal states;
+6. the sync window engine, the same way: the window, replay and burst
+   kernels against their plain versions on inputs taken 8 rounds into
+   sync@4096 (txn_width 3 / drain_depth 4, and txn_width 1 /
+   drain_depth 16) and in a contended 256-node config (locality 0.3:
+   releases, reacquires, dependent hits, truncation); 256 nodes x 64
+   rounds through the kernels on the card against the plain rounds on
+   the CPU; then ``TransactionalSystem.procedural`` at the sync bench
+   defaults (4096 nodes x 4096 instructions, chunk 64) to quiescence
+   through the kernels and through the plain rounds, at txn_width 3 and
+   at txn_width 1: equal rounds and states, every instruction retired,
+   launch counts (window == replay == rounds, or burst == rounds); 4
+   rounds at 1048576 nodes (txn_width 2), kernels against plain rounds;
+   8 rounds of the 4096-node txn_width 3 machine on stored traces made
+   from a seed, card against CPU.
 
 The line before the last is the card's name and power limit as
 nvidia-smi reports them; before it, one JSON object with a row per
@@ -59,11 +74,20 @@ TPU_KERNELS = {
     "flags": "ue22cs343bb1_openmp_assignment_tpu/ops/pallas_deep.py:142",
     "replay": "ue22cs343bb1_openmp_assignment_tpu/ops/pallas_deep.py:121",
     "round": "ue22cs343bb1_openmp_assignment_tpu/ops/pallas_round.py:383",
+    "sync_window":
+        "ue22cs343bb1_openmp_assignment_tpu/ops/pallas_window.py:161",
+    "sync_replay":
+        "ue22cs343bb1_openmp_assignment_tpu/ops/pallas_window.py:206",
+    "sync_burst": "ue22cs343bb1_openmp_assignment_tpu/ops/pallas_burst.py:42",
 }
 CSRC = "ue22cs343bb1_openmp_assignment_tpu_torch/csrc/"
 SOURCES = {"pre": CSRC + "deep_fold.cu", "flags": CSRC + "deep_fold.cu",
-           "replay": CSRC + "deep_fold.cu", "round": CSRC + "deep_round.cu"}
+           "replay": CSRC + "deep_fold.cu", "round": CSRC + "deep_round.cu",
+           "sync_window": CSRC + "sync_window.cu",
+           "sync_replay": CSRC + "sync_window.cu",
+           "sync_burst": CSRC + "sync_burst.cu"}
 FOLD_MODES = ("pre", "flags", "replay")
+SYNC_KERNELS = ("sync_window", "sync_replay", "sync_burst")
 
 
 class SmokeFailure(Exception):
@@ -85,6 +109,15 @@ def contended_cfg():
     three absorption waves, attempt-based flags."""
     return bench_cfg(256, True, proc_local_permille=300, deep_waves=3,
                      deep_exact_flags=False)
+
+
+def sync_cfg(num_nodes: int, txn_width: int, kernels: bool = True, **kw):
+    """The bench's sync config (txn_width 3 / drain_depth 4, or
+    drain_depth 16 at txn_width 1), through the kernels or the plain
+    rounds."""
+    from ue22cs343bb1_openmp_assignment_tpu_torch.bench import sync_config
+    return dataclasses.replace(
+        sync_config(num_nodes, txn_width, window_kernels=kernels), **kw)
 
 
 def smi() -> str:
@@ -302,14 +335,10 @@ def row(name: str, kernel: str, ms: float, plain_ms: float, io_bytes: int,
                 library_ms=None)
 
 
-def phase_build(fold_cfgs, round_cfgs) -> None:
-    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
-        deep_fold_kernel as dfk)
-    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
-        deep_round_kernel as drk)
+def phase_build(jobs) -> None:
+    """Build every (library, config) of ``jobs``, all nvcc processes
+    started together; print what ptxas said of each kernel."""
     from ue22cs343bb1_openmp_assignment_tpu_torch.ops import kernel_build
-    jobs = ([(dfk.LIBRARY, c) for c in fold_cfgs]
-            + [(drk.LIBRARY, c) for c in round_cfgs])
     t0 = time.perf_counter()
     took = kernel_build.build(jobs)
     say("build", f"{len(took)} librar{'y' if len(took) == 1 else 'ies'} "
@@ -317,9 +346,8 @@ def phase_build(fold_cfgs, round_cfgs) -> None:
         f"({', '.join(f'{k[0]} {s:.1f} s' for k, s in took.items())})")
     for lib, cfg in jobs:
         for kernel, info in lib.ptxas_summary(cfg).items():
-            say("build", f"N={cfg.num_nodes} Q={cfg.deep_slots} "
-                f"waves={cfg.deep_waves} exact={cfg.deep_exact_flags} "
-                f"{kernel}: {info}")
+            say("build", f"{lib.name} N={cfg.num_nodes} "
+                f"{dict(lib.defines(cfg))} {kernel}: {info}")
 
 
 def phase_kernel_vs_plain(cfg) -> tuple:
@@ -427,16 +455,19 @@ def phase_card_vs_cpu() -> None:
             f"{int(got['metrics.instrs_retired'])})")
 
 
-def _drive(cfg, run):
+def _drive(cfg, run, warm: bool = False):
     """Run ``run(system)`` from a fresh machine with every launch count
     set to 0 just before and read just after; (result, seconds,
-    counts)."""
+    counts). ``warm`` first makes the same run once and discards it, so
+    that a run of a few rounds is not timed on a cold allocator."""
     import torch
     from ue22cs343bb1_openmp_assignment_tpu_torch import bench
     from ue22cs343bb1_openmp_assignment_tpu_torch.models.transactional \
         import TransactionalSystem
     sys0 = TransactionalSystem.procedural(cfg, BENCH["trace_len"],
                                           device="cuda")
+    if warm:
+        run(sys0)
     torch.cuda.synchronize()
     bench.reset_launch_counts()
     t0 = time.perf_counter()
@@ -503,6 +534,252 @@ def phase_main_path(rows: dict) -> None:
         raise SmokeFailure("deep@65536: fused and fold paths differ")
 
 
+# -- the sync window engine ---------------------------------------------------
+
+SYNC_BIG = 1048576      # the size only this engine reaches
+
+
+def sync_contended_cfg(txn_width: int):
+    """256 nodes at locality 0.3: releases, reacquires, dependent hits
+    and truncation all occur within a few rounds."""
+    return sync_cfg(256, txn_width, proc_local_permille=300)
+
+
+def _sync_mid_run(cfg, rounds: int):
+    """A machine ``rounds`` rounds into its run, made by the plain
+    rounds so that a faulty kernel cannot shape its own inputs."""
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import sync_engine as se
+    plain = dataclasses.replace(cfg, pallas_burst=False)
+    return se.run_rounds(plain, se.procedural_state(
+        plain, BENCH["trace_len"], device="cuda"), rounds)
+
+
+def replay_inputs(cfg, st, args, window_out) -> tuple:
+    """The replay fold's arguments for the round whose window fold gave
+    ``window_out``: the round middle's first_lose, fill_state and
+    fill_val after ``window``'s arguments."""
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import sync_engine as se
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
+        sync_window_kernel as swk)
+    slotmat, stepmat, cv_pre = window_out
+    mid = se.multi_middle(cfg, st, se._index_ops(),
+                          *swk.unpack_window(cfg, slotmat, stepmat), cv_pre,
+                          0)
+    return args + (mid["first_lose"][None, :].contiguous(),
+                   mid["fill_state"].contiguous(),
+                   mid["fill_val"].contiguous())
+
+
+def _sync_row(name, library, cfg, kernel_fn, plain_fn, args, io_bytes,
+              steps_needed: int) -> dict:
+    """Time one sync kernel against its plain version on ``args`` and
+    bound it: bytes over the HBM rate, or the integer instructions of
+    its SASS (the window loop counted once per step that this run's data
+    needs, ``steps_needed`` over all nodes) over the int32 rate."""
+    kname = name + "_kernel"
+    ms = kernel_ms(lambda: [kernel_fn(*args) for _ in range(20)], kname)
+    plain_ms = event_ms(lambda: plain_fn(*args), 3)
+    count = sass_ops(kernel_sass(library, cfg), kname, 1, 1)
+    ops = count["per_step"][0] * steps_needed + count["once"] * cfg.num_nodes
+    r = row(name, name, ms, plain_ms, io_bytes, ops)
+    say("kernel", f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
+        f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}: {io_bytes} B, "
+        f"{ops} integer ops = {steps_needed} steps x "
+        f"{count['per_step'][0]} + N x {count['once']}: {count})")
+    return r
+
+
+def phase_sync_kernels() -> dict:
+    """The window, replay and burst kernels against their plain versions
+    at sync@4096 mid-run and in the contended config; returns their
+    rows."""
+    import torch
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
+        sync_burst_kernel as sbk)
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
+        sync_window_kernel as swk)
+    N = BENCH["num_nodes"]
+    rows = {}
+    for cfg, warm in ((sync_cfg(N, 3), 8), (sync_contended_cfg(3), 6)):
+        st = _sync_mid_run(cfg, warm)
+        args = swk.round_inputs(cfg, st)
+        want = swk.plain_window(*args)
+        k_out = flat_outputs(swk.window(*args))
+        compare(f"sync_window@{cfg.num_nodes}", k_out, flat_outputs(want))
+        rargs = replay_inputs(cfg, st, args, want)
+        wantr = swk.plain_replay(*rargs)
+        kr_out = flat_outputs(swk.replay(*rargs))
+        compare(f"sync_replay@{cfg.num_nodes}", kr_out, flat_outputs(wantr))
+        W = cfg.drain_depth + cfg.txn_width
+        say("kernel", f"sync window and replay at {cfg.num_nodes} nodes "
+            f"(locality {cfg.proc_local_permille / 1000}): "
+            f"{len(k_out)} + {len(kr_out)} output planes bit-identical to "
+            f"plain; {int((want[0][:cfg.txn_width] != 0).sum())} "
+            f"transactions, {int((rargs[6] < W).sum())} truncated windows, "
+            f"{int(wantr[1][0].sum())} retired")
+        if cfg.num_nodes != N:
+            continue
+        rows["sync_window"] = _sync_row(
+            "sync_window", swk.LIBRARY, cfg, swk.window, swk.plain_window,
+            args, sum(swk.io_contract_bytes(cfg, "window")), W * N)
+        # a replay needs the steps it retires and the one that ends them
+        need = int(torch.clamp(wantr[1][0] + 1, max=W).sum())
+        rows["sync_replay"] = _sync_row(
+            "sync_replay", swk.LIBRARY, cfg, swk.replay, swk.plain_replay,
+            rargs, sum(swk.io_contract_bytes(cfg, "replay")), need)
+    for cfg, warm in ((sync_cfg(N, 1), 8), (sync_contended_cfg(1), 6)):
+        st = _sync_mid_run(cfg, warm)
+        args = (cfg, st.cache_addr, st.cache_val, st.cache_state, st.idx,
+                st.instr_count)
+        want = sbk.plain_burst(*args)
+        k_out = flat_outputs(sbk.burst(*args))
+        compare(f"sync_burst@{cfg.num_nodes}", k_out, flat_outputs(want))
+        say("kernel", f"sync burst at {cfg.num_nodes} nodes (locality "
+            f"{cfg.proc_local_permille / 1000}): {len(k_out)} outputs "
+            f"bit-identical to plain; {int(want[0].sum())} burst hits")
+        if cfg.num_nodes == N:
+            # a burst needs its d hits and the slot that stops it
+            rows["sync_burst"] = _sync_row(
+                "sync_burst", sbk.LIBRARY, cfg, sbk.burst, sbk.plain_burst,
+                args, sum(sbk.io_contract_bytes(cfg)),
+                int((want[0] + 1).sum()))
+    return rows
+
+
+def _leaves_differ(a: dict, b: dict):
+    import numpy as np
+    return next((k for k in a if not np.array_equal(a[k], b[k])), None)
+
+
+def phase_sync_card_vs_cpu() -> None:
+    from ue22cs343bb1_openmp_assignment_tpu_torch import convert
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import sync_engine as se
+    for K in (3, 1):
+        t0 = time.perf_counter()
+        plain = sync_cfg(256, K, kernels=False)
+        want = convert.to_numpy(se.run_rounds(plain, se.procedural_state(
+            plain, BENCH["trace_len"], device="cpu"), 64))
+        cfg = sync_cfg(256, K)
+        card = se.run_rounds(cfg, se.procedural_state(
+            cfg, BENCH["trace_len"], device="cuda"), 64)
+        got = convert.to_numpy(card)
+        bad = _leaves_differ(want, got)
+        if bad:
+            raise SmokeFailure(f"sync txn_width {K}: the kernels on the "
+                               f"card and the plain round on the CPU differ "
+                               f"in leaf {bad} after 64 rounds at 256 nodes")
+        se.check_exact_directory(cfg, card)
+        say("card-vs-cpu", f"sync txn_width {K}, 256 nodes x 64 rounds "
+            f"through the kernels: {len(want)} leaves equal to the CPU's "
+            f"plain rounds ({time.perf_counter() - t0:.1f} s, retired "
+            f"{int(got['metrics.instrs_retired'])})")
+
+
+def _stored_traces(cfg, seed: int):
+    """(op, addr, val, count) [N, max_instrs] numpy arrays: uniform
+    reads and writes at locality 0.8, made from ``seed``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    N, T = cfg.num_nodes, cfg.max_instrs
+    local = rng.random((N, T)) < 0.8
+    home = np.where(local, np.arange(N)[:, None], rng.integers(0, N, (N, T)))
+    addr = (home << cfg.block_bits) | rng.integers(0, cfg.mem_size, (N, T))
+    return (rng.integers(0, 2, (N, T)).astype(np.int32),
+            addr.astype(np.int32),
+            rng.integers(0, 256, (N, T)).astype(np.int32),
+            np.full((N,), T, np.int32))
+
+
+def phase_sync_main_path(rows: dict) -> None:
+    from ue22cs343bb1_openmp_assignment_tpu_torch import convert
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import sync_engine as se
+    N, length = BENCH["num_nodes"], BENCH["trace_len"]
+    for K, mine in ((3, ("sync_window", "sync_replay")),
+                    (1, ("sync_burst",))):
+        finals = {}
+        for kernels in (True, False):
+            cfg = sync_cfg(N, K, kernels)
+            done, wall, counts = _drive(
+                cfg, lambda s: s.run(chunk=BENCH["chunk"]))
+            m = done.metrics
+            route = "kernels" if kernels else "plain rounds"
+            if not done.quiescent:
+                raise SmokeFailure(f"sync@{N} txn_width {K} ({route}) did "
+                                   "not reach quiescence")
+            if m["instrs_retired"] != N * length:
+                raise SmokeFailure(f"retired {m['instrs_retired']} of "
+                                   f"{N * length}")
+            inv = done.check_invariants()
+            for kernel, n in counts.items():
+                want = m["rounds"] if kernels and kernel in mine else 0
+                if n != want:
+                    raise SmokeFailure(
+                        f"sync txn_width {K} ({route}): {n} launches of "
+                        f"the {kernel} kernel in {m['rounds']} rounds, "
+                        f"expected {want}")
+                if want:
+                    rows[kernel]["launches"] = n
+            finals[kernels] = (m["rounds"], convert.to_numpy(done.state))
+            say("main", f"sync@{N} x {length}, txn_width {K}, drain_depth "
+                f"{cfg.drain_depth}, through the {route}: quiescent after "
+                f"{m['rounds']} rounds, "
+                f"{m['instrs_retired'] / wall:.6g} instrs/sec, "
+                f"{wall * 1e3 / m['rounds']:.4f} ms/round, wall "
+                f"{wall:.2f} s, launches "
+                f"{ {k: v for k, v in counts.items() if v} }, "
+                f"invariant {inv}")
+        (r0, a), (r1, b) = finals[True], finals[False]
+        bad = _leaves_differ(a, b)
+        if r0 != r1 or bad:
+            raise SmokeFailure(f"sync txn_width {K}: the kernels ({r0} "
+                               f"rounds) and the plain rounds ({r1}) end in "
+                               f"different states (leaf {bad})")
+        say("main", f"sync txn_width {K}: kernels and plain rounds, same "
+            f"{r0} rounds, every leaf equal")
+
+    states = {}
+    for kernels in (True, False):
+        big = sync_cfg(SYNC_BIG, 2, kernels)
+        st, wall, counts = _drive(big, lambda s: s.run_rounds(4), warm=True)
+        if kernels and not counts["sync_window"] == counts["sync_replay"] == 4:
+            raise SmokeFailure(f"sync@{SYNC_BIG}: launches {counts}")
+        inv = st.check_invariants()
+        states[kernels] = convert.to_numpy(st.state)
+        say("main", f"sync@{SYNC_BIG} (txn_width 2) x 4 rounds (after a warm-up "
+            f"run) through the {'kernels' if kernels else 'plain rounds'}: "
+            f"retired "
+            f"{st.instrs_retired}, {wall * 1e3 / 4:.3f} ms/round, "
+            f"invariant {inv}")
+        del st
+    bad = _leaves_differ(states[True], states[False])
+    if bad:
+        raise SmokeFailure(f"sync@{SYNC_BIG}: kernels and plain rounds "
+                           f"differ in leaf {bad}")
+    del states
+
+    # the 4096-node txn_width 3 machine on stored traces (the plain
+    # rounds: the kernels compute a procedural stream only)
+    cfg = dataclasses.replace(sync_cfg(N, 3, kernels=False),
+                              procedural=None, max_instrs=32)
+    traces = _stored_traces(cfg, seed=0)
+    t0 = time.perf_counter()
+    card = se.run_rounds(cfg, se.from_traces(cfg, instr_arrays=traces,
+                                             device="cuda"), 8)
+    cpu = se.run_rounds(cfg, se.from_traces(cfg, instr_arrays=traces,
+                                            device="cpu"), 8)
+    bad = _leaves_differ(convert.to_numpy(cpu), convert.to_numpy(card))
+    if bad:
+        raise SmokeFailure(f"stored traces: card and CPU differ in {bad}")
+    inv = se.check_exact_directory(cfg, card)
+    retired = int(card.metrics.instrs_retired)
+    if retired <= 0:
+        raise SmokeFailure("stored traces: nothing retired in 8 rounds")
+    say("main", f"sync@{N} txn_width 3 on stored traces ({cfg.max_instrs} "
+        f"instructions a node, seed 0) x 8 rounds: card equal to CPU, "
+        f"retired {retired}, invariant {inv} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+
 def main() -> int:
     try:
         import torch
@@ -524,19 +801,35 @@ def main() -> int:
         card = smi()
         say("device", f"{card}; torch {torch.__version__}, CUDA "
             f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+        from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
+            deep_fold_kernel, deep_round_kernel, sync_burst_kernel,
+            sync_window_kernel)
         cfg = bench_cfg(BENCH["num_nodes"])
-        phase_build([cfg, bench_cfg(256), bench_cfg(65536)],
-                    [bench_cfg(BENCH["num_nodes"], True), contended_cfg(),
-                     bench_cfg(65536, True)])
+        phase_build(
+            [(deep_fold_kernel.LIBRARY, c)
+             for c in (cfg, bench_cfg(256), bench_cfg(65536))]
+            + [(deep_round_kernel.LIBRARY, c)
+               for c in (bench_cfg(BENCH["num_nodes"], True),
+                         contended_cfg(), bench_cfg(65536, True))]
+            + [(sync_window_kernel.LIBRARY, c)
+               for c in (sync_cfg(BENCH["num_nodes"], 3),
+                         sync_contended_cfg(3), sync_cfg(SYNC_BIG, 2))]
+            + [(sync_burst_kernel.LIBRARY, c)
+               for c in (sync_cfg(BENCH["num_nodes"], 1),
+                         sync_contended_cfg(1))])
         rows, st = phase_kernel_vs_plain(cfg)
         rows["round"] = phase_round_vs_plain(cfg, st)
         phase_card_vs_cpu()
         phase_main_path(rows)
+        rows.update(phase_sync_kernels())
+        phase_sync_card_vs_cpu()
+        phase_sync_main_path(rows)
     except (SmokeFailure, AssertionError, RuntimeError, ValueError) as e:
         print(f"FAIL: {type(e).__name__}: {e}", flush=True)
         return 1
     say("done", f"all phases passed in {time.perf_counter() - t_all:.1f} s")
-    print(json.dumps({"kernels": [rows[k] for k in FOLD_MODES + ("round",)]}))
+    print(json.dumps({"kernels": [rows[k] for k in FOLD_MODES + ("round",)
+                                  + SYNC_KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

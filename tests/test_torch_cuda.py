@@ -1,5 +1,6 @@
-"""The CUDA kernels (the fold and the fused round) against their plain
-versions, on the card.
+"""The CUDA kernels (the deep fold, the fused round, and the sync window
+engine's window, replay and burst kernels) against their plain versions,
+on the card.
 
 Marked ``cuda``: each test skips without a card (decided inside the
 fixture, never at import). The card machine has no JAX, so run this file
@@ -15,14 +16,18 @@ import dataclasses
 import pytest
 import torch
 
-from chip_smoke import fold_inputs
+from chip_smoke import replay_inputs, fold_inputs
 from ue22cs343bb1_openmp_assignment_tpu_torch import convert
 from ue22cs343bb1_openmp_assignment_tpu_torch.config import SystemConfig
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
     deep_fold_kernel as dfk)
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
     deep_round_kernel as drk)
+from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
+    sync_burst_kernel as sbk)
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import sync_engine as se
+from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
+    sync_window_kernel as swk)
 
 pytestmark = pytest.mark.cuda
 
@@ -140,3 +145,80 @@ def test_round_wrapper_refuses_bad_operands(card):
     bad[2] = args[2][:-7]                            # dm
     with pytest.raises(ValueError, match="dm"):
         drk.fused_round(*bad)
+
+
+# -- the sync window engine ---------------------------------------------------
+
+def _sync_cfg(num_nodes, txn_width, drain_depth, **kw):
+    cfg = SystemConfig.scale(num_nodes=num_nodes, drain_depth=drain_depth,
+                             txn_width=txn_width)
+    base = dict(procedural="uniform", max_instrs=1, pallas_burst=True)
+    return dataclasses.replace(cfg, **dict(base, **kw))
+
+
+@pytest.mark.parametrize("K,H,local", [(3, 4, 800), (2, 1, 300), (4, 3, 500)],
+                         ids=["bench", "contended", "k4"])
+def test_window_and_replay_kernels_equal_plain_mid_run(card, K, H, local):
+    cfg = _sync_cfg(1000, K, H, proc_local_permille=local)  # ragged block
+    st = se.run_rounds(cfg, se.procedural_state(cfg, 4096, device=card), 6,
+                       fold_impl="plain")
+    args = swk.round_inputs(cfg, st)
+    before = swk.window.launches, swk.replay.launches
+    want = swk.plain_window(*args)
+    for a, b in zip(swk.window(*args), want):
+        assert torch.equal(a, b)
+    rargs = replay_inputs(cfg, st, args, want)
+    for a, b in zip(swk.replay(*rargs), swk.plain_replay(*rargs)):
+        assert torch.equal(a, b)
+    assert (swk.window.launches, swk.replay.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("H,local", [(16, 800), (6, 300)],
+                         ids=["bench", "contended"])
+def test_burst_kernel_equals_plain_mid_run(card, H, local):
+    cfg = _sync_cfg(1000, 1, H, proc_local_permille=local)
+    st = se.run_rounds(cfg, se.procedural_state(cfg, 4096, device=card), 6,
+                       fold_impl="plain")
+    args = (cfg, st.cache_addr, st.cache_val, st.cache_state, st.idx,
+            st.instr_count)
+    before = sbk.burst.launches
+    for a, b in zip(sbk.burst(*args), sbk.plain_burst(*args)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert sbk.burst.launches == before + 1
+
+
+@pytest.mark.parametrize("K,H", [(3, 4), (1, 16)], ids=["multi", "single"])
+def test_sync_rounds_kernels_equal_plain_rounds_and_cpu(card, K, H):
+    cfg = _sync_cfg(128, K, H, proc_local_permille=500)
+    plain = dataclasses.replace(cfg, pallas_burst=False)
+    k = se.procedural_state(cfg, 4096, seed=3, device=card)
+    p, c = k, se.procedural_state(cfg, 4096, seed=3, device="cpu")
+    for _ in range(8):
+        k = se.round_step(cfg, k)
+        p = se.round_step(plain, p)
+        c = se.round_step(plain, c)
+    want = convert.to_numpy(c)
+    for st in (k, p):
+        got = convert.to_numpy(st)
+        for name in want:
+            assert (want[name] == got[name]).all(), name
+
+
+def test_sync_wrappers_refuse_bad_operands(card):
+    cfg = _sync_cfg(256, 3, 4)
+    args = swk.round_inputs(cfg, se.procedural_state(cfg, 64, device=card))
+    bad = list(args)
+    bad[2] = args[2].to(torch.int64)                 # cache_val
+    with pytest.raises(ValueError, match="int32"):
+        swk.window(*bad)
+    bad = list(args)
+    bad[4] = args[4][:, :-1].contiguous()            # idx
+    with pytest.raises(ValueError, match="idx"):
+        swk.window(*bad)
+    fl = torch.zeros((1, 256), dtype=torch.int32, device=card)
+    fills = torch.zeros((3, 256), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        swk.replay(*args, fl, fills.T.contiguous().T, fills)
+    with pytest.raises(ValueError, match="not CUDA"):
+        sbk.launch(cfg, *[t.cpu() for t in args[1:]])

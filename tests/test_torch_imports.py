@@ -78,10 +78,18 @@ def test_entry_points_need_the_card_unless_asked_for_cpu(monkeypatch):
 
 
 def test_non_deep_configs_name_the_later_slice():
+    """Non-deep configs run since the sync window engine was ported;
+    what still waits for a later slice says so."""
     _, cfg = cfg_pair(8, procedural="uniform", max_instrs=1)
     st = se.procedural_state(cfg, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        se.round_step(cfg, st)
+    assert int(se.round_step(cfg, st).round) == 1
+    _, deep = cfg_pair(8, **BENCH_DEEP)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        se.round_step(deep, se.procedural_state(deep, 4, device="cpu"),
+                      with_events=True)
+    for later in ("make_ensemble", "run_ensemble_to_quiescence",
+                  "run_sync_profile"):
+        assert not hasattr(se, later)
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

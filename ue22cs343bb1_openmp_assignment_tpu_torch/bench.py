@@ -1,23 +1,36 @@
-"""Throughput benchmark of the port's main path (one JSON line).
+"""Throughput benchmark of the port's main paths (one JSON line).
 
-    python -m ue22cs343bb1_openmp_assignment_tpu_torch.bench [--nodes N]
-        [--trace-len L] [--chunk K] [--reps R] [--fold-impl kernel|plain]
-        [--fused-round auto|on|off] [--profile ROUNDS] [--device cuda|cpu]
+    python -m ue22cs343bb1_openmp_assignment_tpu_torch.bench
+        [--engine deep|sync] [--nodes N] [--trace-len L] [--chunk K]
+        [--reps R] [--txn-width K] [--drain-depth H]
+        [--fold-impl kernel|plain] [--fused-round auto|on|off]
+        [--window-kernels auto|on|off] [--profile ROUNDS]
+        [--device cuda|cpu]
 
-Runs the deep-window transactional engine at the JAX ``bench.py``'s deep
-defaults (4096 nodes, 4096 procedural-uniform instructions per node,
-locality 0.8, drain_depth 13, txn_width 3, deep_slots 3, one owner-value
-slot, slack 4, one wave, exact flags, chunk 64) to quiescence: one
-discarded warm-up, then the median of ``--reps`` runs, each clock stop
-after ``torch.cuda.synchronize()``. ``--fused-round`` selects the round:
-the whole round as one kernel (``ops/deep_round_kernel``) or the fold
-path (three fold kernels around the plain round middle); ``auto``, the
-default, takes the fused round on a card where ``supported(cfg)`` holds,
-as the JAX ``bench.py`` does on a TPU. The JSON line carries instrs/sec,
-rounds, ms/round, the card's name and power limit, which round ran and
-the kernels' launch counts of one run. ``--profile R`` adds a
-torch.profiler window of R rounds: device-busy share, device launches
-and device time by kernel.
+Runs a transactional engine at the JAX ``bench.py``'s defaults (4096
+nodes, 4096 procedural-uniform instructions per node, locality 0.8,
+chunk 64) to quiescence: one discarded warm-up, then the median of
+``--reps`` runs, each clock stop after ``torch.cuda.synchronize()``.
+
+``--engine deep`` (the default) is the deep-window engine (drain_depth
+13, txn_width 3, deep_slots 3, one owner-value slot, slack 4, one wave,
+exact flags). ``--fused-round`` selects its round: the whole round as
+one kernel (``ops/deep_round_kernel``) or the fold path (three fold
+kernels around the plain round middle); ``auto``, the default, takes the
+fused round on a card where ``supported(cfg)`` holds, as the JAX
+``bench.py`` does on a TPU.
+
+``--engine sync`` is the sync window engine: txn_width 3 and drain_depth
+4 by default, drain_depth 16 at ``--txn-width 1``. ``--window-kernels``
+sets ``cfg.pallas_burst``, which routes the node-local folds through the
+CUDA kernels (``ops/sync_window_kernel``, or ``ops/sync_burst_kernel``
+at txn_width 1); ``auto`` turns it on for a card, ``off`` measures the
+plain rounds.
+
+The JSON line carries instrs/sec, rounds, ms/round, the card's name and
+power limit, which round ran and the kernels' launch counts of one run.
+``--profile R`` adds a torch.profiler window of R rounds: device-busy
+share, device launches and device time by kernel.
 """
 
 from __future__ import annotations
@@ -37,7 +50,17 @@ from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
     deep_fold_kernel as dfk)
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
     deep_round_kernel as drk)
+from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
+    sync_burst_kernel as sbk)
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import sync_engine as se
+from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
+    sync_window_kernel as swk)
+
+#: the port's kernels by the name the profiler reports them under
+KERNEL_NAMES = {"fold": "deep_fold_kernel", "round": "deep_round_kernel",
+                "sync_burst": "sync_burst_kernel",
+                "sync_window": "sync_window_kernel",
+                "sync_replay": "sync_replay_kernel"}
 
 
 def deep_config(nodes: int) -> SystemConfig:
@@ -50,14 +73,34 @@ def deep_config(nodes: int) -> SystemConfig:
         max_instrs=1, proc_local_permille=800)
 
 
+def sync_config(nodes: int, txn_width: int = 3, drain_depth=None,
+                window_kernels: bool = False) -> SystemConfig:
+    """bench.py's sync-engine config at ``nodes``: txn_width 3 and
+    drain_depth 4, or drain_depth 16 at txn_width 1, procedural uniform
+    at locality 0.8; ``window_kernels`` sets ``pallas_burst``."""
+    if drain_depth is None:
+        drain_depth = 16 if txn_width == 1 else 4
+    cfg = SystemConfig.scale(num_nodes=nodes, drain_depth=drain_depth,
+                             txn_width=txn_width)
+    return dataclasses.replace(
+        cfg, procedural="uniform", max_instrs=1, proc_local_permille=800,
+        pallas_burst=window_kernels)
+
+
+_COUNTED = {"round": drk.fused_round, "sync_burst": sbk.burst,
+            "sync_window": swk.window, "sync_replay": swk.replay}
+
+
 def reset_launch_counts() -> None:
     dfk.reset_launch_counts()
-    drk.fused_round.launches = 0
+    for fn in _COUNTED.values():
+        fn.launches = 0
 
 
 def launch_counts() -> dict:
     """Launches of every kernel of the port since the last reset."""
-    return dict(dfk.launch_counts(), round=drk.fused_round.launches)
+    return dict(dfk.launch_counts(),
+                **{k: fn.launches for k, fn in _COUNTED.items()})
 
 
 def with_fused_round(cfg: SystemConfig, mode: str,
@@ -120,15 +163,14 @@ def profile_rounds(cfg, st, rounds: int, fold_impl: str) -> dict:
         tot, n = by_name.get(name, (0.0, 0))
         by_name[name] = (tot + us, n + 1)
     busy_us = sum(us for _, us in events)
-    fold_us = sum(us for name, us in events if "deep_fold_kernel" in name)
-    round_us = sum(us for name, us in events
-                   if "deep_round_kernel" in name)
+    ours = {k: sum(us for name, us in events if kname in name)
+            for k, kname in KERNEL_NAMES.items()}
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     return {"rounds": rounds, "wall_ms_per_round": wall * 1e3 / rounds,
             "device_busy_ms_per_round": busy_us / 1e3 / rounds,
             "device_idle_share": 1 - busy_us / 1e6 / wall,
-            "fold_kernel_ms_per_round": fold_us / 1e3 / rounds,
-            "round_kernel_ms_per_round": round_us / 1e3 / rounds,
+            "kernel_ms_per_round": {k: us / 1e3 / rounds
+                                    for k, us in ours.items() if us},
             "device_launches_per_round": len(events) / rounds,
             "top_kernels": [{"name": k[:80], "ms_per_round":
                              us / 1e3 / rounds, "calls_per_round":
@@ -137,6 +179,7 @@ def profile_rounds(cfg, st, rounds: int, fold_impl: str) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--engine", choices=["deep", "sync"], default="deep")
     ap.add_argument("--nodes", type=int, default=4096)
     ap.add_argument("--trace-len", type=int, default=4096)
     ap.add_argument("--chunk", type=int, default=64)
@@ -145,11 +188,25 @@ def main(argv=None) -> int:
                     default="kernel")
     ap.add_argument("--fused-round", choices=["auto", "on", "off"],
                     default="auto")
+    ap.add_argument("--txn-width", type=int, default=3)
+    ap.add_argument("--drain-depth", type=int, default=None)
+    ap.add_argument("--window-kernels", choices=["auto", "on", "off"],
+                    default="auto")
     ap.add_argument("--profile", type=int, default=0, metavar="ROUNDS")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     dev = torch.device(args.device)
-    cfg = with_fused_round(deep_config(args.nodes), args.fused_round, dev)
+    if args.engine == "sync":
+        on = args.window_kernels == "on" or (
+            args.window_kernels == "auto" and dev.type == "cuda")
+        cfg = sync_config(args.nodes, args.txn_width, args.drain_depth, on)
+    else:
+        if (args.txn_width, args.drain_depth) != (3, None):
+            print("error: --txn-width and --drain-depth size the sync "
+                  "engine's window; use --engine sync", file=sys.stderr)
+            return 2
+        cfg = with_fused_round(deep_config(args.nodes), args.fused_round,
+                               dev)
 
     def one_run():
         st = se.procedural_state(cfg, args.trace_len, device=dev)
@@ -174,10 +231,13 @@ def main(argv=None) -> int:
            "rounds": rounds, "ms_per_round": wall * 1e3 / rounds,
            "wall_s": wall, "reps_s": [r[0] for r in runs],
            "instrs_retired": retired, "card": card_name_and_limit(dev),
-           "fold_impl": args.fold_impl, "fused_round": cfg.fused_round,
-           "launches": launches,
+           "engine": args.engine, "fold_impl": args.fold_impl,
+           "fused_round": cfg.fused_round,
+           "window_kernels": cfg.pallas_burst, "launches": launches,
            "config": {"nodes": args.nodes, "trace_len": args.trace_len,
-                      "chunk": args.chunk, "deep_slots": cfg.deep_slots}}
+                      "chunk": args.chunk, "deep_slots": cfg.deep_slots,
+                      "txn_width": cfg.txn_width,
+                      "drain_depth": cfg.drain_depth}}
     if args.profile:
         st = se.run_rounds(cfg, se.procedural_state(
             cfg, args.trace_len, device=dev), 16, args.fold_impl)

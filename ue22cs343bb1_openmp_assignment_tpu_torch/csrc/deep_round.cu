@@ -77,6 +77,7 @@
 #include <cooperative_groups.h>
 
 #include "deep_fold.cuh"
+#include "hash32.cuh"
 
 #if !defined(DR_WAVES) || !defined(DR_EXACT)
 #error "the build defines DR_WAVES and DR_EXACT"
@@ -88,6 +89,7 @@
 namespace {
 
 using namespace dfold;
+using hash32::mix32;
 namespace cg = cooperative_groups;
 
 constexpr int WAVES = DR_WAVES;       // absorption waves
@@ -159,14 +161,6 @@ struct RoundArgs {
   int prio_bits;       // max(1, bit_length(n - 1))
   int cmr;             // sync_engine.claim_max_rounds
 };
-
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  return x ^ (x >> 16);
-}
 
 // The round's claim keys (sync_engine._round_key_rs): a countdown in the
 // high bits, a reseeded bijective node-priority permutation in the low.

@@ -1,13 +1,15 @@
 """TransactionalSystem — the transactional engine's high-level API.
 
-The port of the JAX package's ``models/transactional.py`` for the
-deep-window engine: constructors from a fixture tree, raw traces or the
-procedural stream, the run verbs, metrics, the exact-directory check
-and ``printProcessorState`` dumps. State lives on ``device`` (None
-means the card; the CPU only when asked for).
+The port of the JAX package's ``models/transactional.py``: constructors
+from a fixture tree, raw traces or the procedural stream, the run verbs,
+trace streaming (``continue_with``), metrics, the exact-directory check
+and ``printProcessorState`` dumps, for every round of
+``ops.sync_engine.round_step`` (deep-window, single- and
+multi-transaction). State lives on ``device`` (None means the card; the
+CPU only when asked for).
 
-Synthetic stored-trace workloads (``from_workload``), checkpoints,
-phase streaming and seed ensembles are later slices of the port.
+Synthetic stored-trace workloads (``from_workload``), checkpoints and
+seed ensembles are later slices of the port.
 """
 
 from __future__ import annotations
@@ -67,6 +69,14 @@ class TransactionalSystem:
     def run_rounds(self, n: int) -> "TransactionalSystem":
         return dataclasses.replace(
             self, state=se.run_rounds(self.cfg, self.state, n))
+
+    def continue_with(self, traces=None,
+                      instr_arrays=None) -> "TransactionalSystem":
+        """Stream the next trace phase into the retired machine."""
+        return dataclasses.replace(
+            self, state=se.continue_with_traces(
+                self.cfg, self.state, traces=traces,
+                instr_arrays=instr_arrays))
 
     # -- inspection --------------------------------------------------------
     @property

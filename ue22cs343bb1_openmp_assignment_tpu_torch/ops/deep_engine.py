@@ -638,20 +638,6 @@ def _finish_round_deep(cfg: SystemConfig, st: SyncState, core) -> SyncState:
     from the per-node delta rows, window-cursor/horizon advance."""
     rp = core["rp"]
     deltas = torch.sum(core["delta_rows"], dim=1, dtype=I32)
-    mt = st.metrics
-    metrics = mt.replace(
-        rounds=mt.rounds + 1,
-        instrs_retired=mt.instrs_retired + deltas[0],
-        read_hits=mt.read_hits + deltas[1],
-        write_hits=mt.write_hits + deltas[2],
-        read_misses=mt.read_misses + deltas[3],
-        write_misses=mt.write_misses + deltas[4],
-        upgrades=mt.upgrades + deltas[5],
-        conflicts=mt.conflicts + deltas[6],
-        evictions=mt.evictions + deltas[7],
-        invalidations=mt.invalidations + deltas[8],
-        promotions=mt.promotions + deltas[9],
-    )
     return st.replace(
         cache_addr=core["ca_c"].T.contiguous(),
         cache_val=core["cv_c"].T.contiguous(),
@@ -659,4 +645,4 @@ def _finish_round_deep(cfg: SystemConfig, st: SyncState, core) -> SyncState:
         dm=core["dm"], idx=st.idx + rp["n_ret"],
         horizon=torch.clamp(rp["n_ret"] + cfg.deep_horizon_slack, 2,
                             1 << 20),
-        round=st.round + 1, metrics=metrics)
+        round=st.round + 1, metrics=st.metrics.after_round(deltas))

@@ -73,7 +73,8 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 
 LIBRARY = kernel_build.Library("deep_round", "deep_round.cu",
-                               ("deep_fold.cuh",), defines, _bind,
+                               ("deep_fold.cuh", "hash32.cuh"), defines,
+                               _bind,
                                {r"deep_round_kernel": "round"})
 
 
