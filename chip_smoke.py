@@ -45,7 +45,27 @@ Phases (each prints its own line; any failure exits non-zero):
    launch counts (window == replay == rounds, or burst == rounds); 4
    rounds at 1048576 nodes (txn_width 2), kernels against plain rounds;
    8 rounds of the 4096-node txn_width 3 machine on stored traces made
-   from a seed, card against CPU.
+   from a seed, card against CPU;
+7. the message-level engine (async) and its routed delivery: the ring
+   exchange kernel (csrc/ring_exchange.cu) against its plain version on
+   the outbox lanes of the cycle 64 cycles into async@4096 (D = 4 and
+   D = 8), every word equal, with its device time, the plain version's
+   and the library call's (``transpose(0, 1).contiguous()``); 256 nodes
+   x 32 instructions of ``procedural_uniform`` on the card, unrouted and
+   routed through the ring at D = 4, against the CPU, every leaf equal,
+   and the in-repo fixture tests/fixtures/mini (reference config,
+   mailbox INV) with dumps byte-identical to the CPU's; then
+   ``CoherenceSystem.from_workload`` at the async bench defaults (4096
+   nodes, queue capacity 64, scatter INV, locality 0.8, chunk 64) with
+   the trace cut from 4096 to 512 instructions a node, to quiescence
+   three ways (plain ``mailbox.deliver``, routed through the ring kernel
+   at D = 4, routed through all_to_all at D = 4): equal cycles and
+   states, every instruction retired, no drops, the final state equal
+   to the JAX package's (its digest and invariant counts, recorded by
+   scripts/async_reference.py: the workload is racy, so both invariant
+   tiers have counts there, the same on both sides), ring launches ==
+   cycles on the rdma run and 0 on the others; and, with two or more
+   cards, one exchange across real cards against its plain version.
 
 The line before the last is the card's name and power limit as
 nvidia-smi reports them; before it, one JSON object with a row per
@@ -79,13 +99,15 @@ TPU_KERNELS = {
     "sync_replay":
         "ue22cs343bb1_openmp_assignment_tpu/ops/pallas_window.py:206",
     "sync_burst": "ue22cs343bb1_openmp_assignment_tpu/ops/pallas_burst.py:42",
+    "ring": "ue22cs343bb1_openmp_assignment_tpu/parallel/rdma_comm.py:105",
 }
 CSRC = "ue22cs343bb1_openmp_assignment_tpu_torch/csrc/"
 SOURCES = {"pre": CSRC + "deep_fold.cu", "flags": CSRC + "deep_fold.cu",
            "replay": CSRC + "deep_fold.cu", "round": CSRC + "deep_round.cu",
            "sync_window": CSRC + "sync_window.cu",
            "sync_replay": CSRC + "sync_window.cu",
-           "sync_burst": CSRC + "sync_burst.cu"}
+           "sync_burst": CSRC + "sync_burst.cu",
+           "ring": CSRC + "ring_exchange.cu"}
 FOLD_MODES = ("pre", "flags", "replay")
 SYNC_KERNELS = ("sync_window", "sync_replay", "sync_burst")
 
@@ -146,15 +168,20 @@ def event_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def kernel_ms(fn, kernel: str) -> float:
-    """Median device time of the launches of ``kernel`` in fn()."""
+def kernel_ms(fn, kernel: str = "") -> float:
+    """Median device time of the launches of ``kernel`` in fn() (every
+    launch when ``kernel`` is empty). The profiler now and then returns
+    a window without the card's events; such a window is taken again, at
+    most twice, before the phase fails."""
     from ue22cs343bb1_openmp_assignment_tpu_torch.bench import device_events
     fn()
-    events, _ = device_events(fn)
-    times = [us for name, us in events if kernel in name]
-    if not times:
-        raise SmokeFailure(f"the profiler saw no {kernel} launch")
-    return statistics.median(times) / 1e3
+    for _ in range(3):
+        events, _ = device_events(fn)
+        times = [us for name, us in events if kernel in name]
+        if times:
+            return statistics.median(times) / 1e3
+    raise SmokeFailure(f"the profiler saw no {kernel or 'device'} launch "
+                       "in three windows")
 
 
 # SASS opcodes that do no integer work of the kernel: memory, control
@@ -346,7 +373,8 @@ def phase_build(jobs) -> None:
         f"({', '.join(f'{k[0]} {s:.1f} s' for k, s in took.items())})")
     for lib, cfg in jobs:
         for kernel, info in lib.ptxas_summary(cfg).items():
-            say("build", f"{lib.name} N={cfg.num_nodes} "
+            nodes = cfg.num_nodes if cfg is not None else "any"
+            say("build", f"{lib.name} N={nodes} "
                 f"{dict(lib.defines(cfg))} {kernel}: {info}")
 
 
@@ -780,6 +808,248 @@ def phase_sync_main_path(rows: dict) -> None:
         f"({time.perf_counter() - t0:.1f} s)")
 
 
+# -- the message-level engine and its routed delivery ----------------------
+
+#: the async main path: the bench's 4096 nodes, its trace cut to 512
+#: instructions a node for time (the bench runs 4096)
+ASYNC = dict(num_nodes=4096, trace_len=512, chunk=64, shards=4)
+#: the JAX package's final state of that run on the CPU, as printed by
+#: ``scripts/async_reference.py`` (defaults): its cycles, its nonzero
+#: invariant counts and ``convert.leaves_digest`` of its leaves
+ASYNC_REFERENCE = {
+    "cycles": 2240,
+    "step_violations": {"unowned_with_sharers": 16},
+    "coherence": {"valid_line_unknown_to_home": 21,
+                  "exclusive_line_dir_not_em": 30,
+                  "shared_line_dir_unowned": 4, "multiple_owners": 5,
+                  "owner_with_other_copies": 4, "clean_line_stale_value": 75,
+                  "phantom_sharers": 630},
+    "digest": ("d5aa18ca474c9a0085ae96474fd4c6d9"
+               "9eebdbc98bd75008d058b2aa38408d88"),
+}
+
+
+def async_cfg(num_nodes: int, trace_len: int, transport: str = "rdma",
+              **kw):
+    """The async bench config (scatter INV, queue capacity 64, locality
+    0.8) with ``trace_len`` instructions a node."""
+    from ue22cs343bb1_openmp_assignment_tpu_torch.bench import async_config
+    return dataclasses.replace(async_config(num_nodes, trace_len),
+                               transport=transport, **kw)
+
+
+def async_system(cfg, device):
+    from ue22cs343bb1_openmp_assignment_tpu_torch.models.system import (
+        CoherenceSystem)
+    return CoherenceSystem.from_workload(cfg, "procedural_uniform",
+                                         device=device)
+
+
+def ring_outboxes(cfg, st, shards: int):
+    """The packed outbox lanes [D, D, cap, 2 + Fw] that the rdma
+    transport hands the ring kernel in the cycle after ``st``, captured
+    from a cycle with plain delivery."""
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import mailbox, step
+    from ue22cs343bb1_openmp_assignment_tpu_torch.parallel import (
+        mesh, rdma_comm)
+    got = {}
+
+    def capture(cfg_, state, cand, arb_rank, new_head, new_count):
+        got["ob"] = rdma_comm._pack_lanes(*rdma_comm.outbox_lanes(
+            cfg_, mesh.make_layout(cfg_.num_nodes, shards, device="cuda"),
+            cand, arb_rank)[:4])
+        return mailbox.deliver(cfg_, state, cand, arb_rank, new_head,
+                               new_count)
+
+    step.cycle(cfg, st, deliver_fn=capture)
+    return got["ob"]
+
+
+def phase_ring_kernel() -> dict:
+    """The ring exchange against its plain version on the outbox lanes
+    64 cycles into async@4096, at D = 4 (the main path's) and D = 8;
+    returns its row (D = 4)."""
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import step
+    from ue22cs343bb1_openmp_assignment_tpu_torch.parallel import ring_kernel
+    cfg = async_cfg(ASYNC["num_nodes"], ASYNC["trace_len"])
+    st = step.run_cycles(cfg, async_system(cfg, "cuda").state, 64)
+    r = None
+    for D in (ASYNC["shards"], 8):
+        ob = ring_outboxes(cfg, st, D)
+        k_out = [("inbox", ring_kernel.exchange(ob))]
+        compare(f"ring D={D}", k_out,
+                [("inbox", ring_kernel.plain_exchange(ob))])
+        ms = kernel_ms(lambda: [ring_kernel.exchange(ob) for _ in range(20)],
+                       "ring_exchange_kernel")
+        plain_ms = event_ms(lambda: ring_kernel.plain_exchange(ob), 3)
+        # the one PyTorch call that computes the same function, timed on
+        # the card as the kernel is (its copy kernel's device time)
+        lib_ms = kernel_ms(lambda: [ob.transpose(0, 1).contiguous()
+                                    for _ in range(20)])
+        io_bytes = sum(ring_kernel.io_contract_bytes(*ob.shape[1:]))
+        row_d = dict(row("ring_exchange", "ring", ms, plain_ms, io_bytes, 0),
+                     library_ms=lib_ms)
+        rows_valid = int((ob[..., 0] >= 0).sum())
+        say("kernel", f"ring D={D}: lanes {tuple(ob.shape)} ({rows_valid} "
+            f"messages) equal to plain word for word; kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.3f} ms, library transpose().contiguous() "
+            f"{lib_ms:.4f} ms, bound {row_d['bound_ms']:.5f} ms "
+            f"({row_d['bound_by']}: {io_bytes} B)")
+        if D == ASYNC["shards"]:
+            r = row_d
+    return r
+
+
+def _async_run(cfg, sys0, shards: int, transport: str, chunk: int,
+               max_cycles: int):
+    """Run ``sys0`` to quiescence with delivery over ``shards`` shards
+    (1: unrouted) by ``transport``, launch counts set to 0 just before
+    and read just after; (system, seconds, counts)."""
+    import torch
+    from ue22cs343bb1_openmp_assignment_tpu_torch import bench
+    from ue22cs343bb1_openmp_assignment_tpu_torch.parallel import (
+        mesh, sharded_step)
+    cfg = dataclasses.replace(cfg, transport=transport)
+    fn = sharded_step.transport_deliver(
+        cfg, mesh.make_layout(cfg.num_nodes, shards, device=sys0.state.device))
+    sys0 = dataclasses.replace(sys0, cfg=cfg)
+    torch.cuda.synchronize()
+    bench.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = sys0.run(max_cycles, chunk=chunk, deliver_fn=fn)
+    torch.cuda.synchronize()
+    return done, time.perf_counter() - t0, bench.launch_counts()
+
+
+def phase_async_card_vs_cpu() -> None:
+    from ue22cs343bb1_openmp_assignment_tpu_torch import convert
+    from ue22cs343bb1_openmp_assignment_tpu_torch.models.system import (
+        CoherenceSystem)
+    from ue22cs343bb1_openmp_assignment_tpu_torch.config import SystemConfig
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(async_cfg(256, 32), queue_capacity=32)
+    cpu, _, _ = _async_run(cfg, async_system(cfg, "cpu"), 1, "rdma", 16,
+                           10_000)
+    want = convert.sim_numpy_leaves(cpu.state)
+    for shards in (1, ASYNC["shards"]):
+        card, wall, counts = _async_run(cfg, async_system(cfg, "cuda"),
+                                        shards, "rdma", 16, 10_000)
+        bad = _leaves_differ(want, convert.sim_numpy_leaves(card.state))
+        route = "plain delivery" if shards == 1 else f"the ring at D={shards}"
+        if bad:
+            raise SmokeFailure(f"async 256 nodes: the card ({route}) and the "
+                               f"CPU differ in leaf {bad}")
+        if (counts["ring"] > 0) != (shards > 1):
+            raise SmokeFailure(f"async 256 nodes ({route}): {counts['ring']} "
+                               "ring launches")
+        say("card-vs-cpu", f"async 256 nodes x 32 instructions through "
+            f"{route}: {len(want)} leaves equal to the CPU's (cycles "
+            f"{card.metrics['cycles']}, retired {card.instrs_retired}, ring "
+            f"launches {counts['ring']}, {wall:.1f} s)")
+    ref = SystemConfig.reference()
+    cpu = CoherenceSystem.from_test_dir("tests/fixtures/mini", ref,
+                                        device="cpu").run()
+    for shards in (1, 4):
+        card, _, counts = _async_run(
+            ref, CoherenceSystem.from_test_dir("tests/fixtures/mini", ref,
+                                               device="cuda"),
+            shards, "rdma", 1, 100_000)
+        if card.dumps() != cpu.dumps():
+            raise SmokeFailure(f"tests/fixtures/mini over {shards} shard(s): "
+                               "the card's dumps differ from the CPU's")
+        say("card-vs-cpu", f"tests/fixtures/mini (reference config, mailbox "
+            f"INV) on the card over {shards} shard(s): {len(cpu.dumps())} "
+            f"dumps byte-identical to the CPU's, {card.metrics['cycles']} "
+            f"cycles, ring launches {counts['ring']}")
+    say("card-vs-cpu", f"async phases took {time.perf_counter() - t0:.1f} s")
+
+
+def phase_async_main_path(rows: dict) -> None:
+    from ue22cs343bb1_openmp_assignment_tpu_torch import convert
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import invariants
+    N, length, D = ASYNC["num_nodes"], ASYNC["trace_len"], ASYNC["shards"]
+    cfg = async_cfg(N, length)
+    finals = {}
+    for shards, transport in ((1, "none"), (D, "rdma"), (D, "all_to_all")):
+        done, wall, counts = _async_run(
+            cfg, async_system(cfg, "cuda"), shards,
+            transport if shards > 1 else "rdma", ASYNC["chunk"],
+            200 * length)
+        m = done.metrics
+        route = ("plain mailbox.deliver" if shards == 1 else
+                 f"routed {transport} at D={shards}")
+        if not done.quiescent:
+            raise SmokeFailure(f"async@{N} ({route}) did not reach "
+                               "quiescence")
+        if m["instrs_retired"] != N * length or m["msgs_dropped"]:
+            raise SmokeFailure(f"async@{N} ({route}): retired "
+                               f"{m['instrs_retired']} of {N * length}, "
+                               f"{m['msgs_dropped']} messages dropped")
+        step_v = {k: int(v) for k, v in invariants.step_violations(
+            cfg, done.state).items() if int(v)}
+        coherence = {k: v for k, v in invariants.coherence_report(
+            cfg, done.state).items() if v}
+        digest = convert.leaves_digest(convert.sim_numpy_leaves(done.state))
+        got = dict(cycles=m["cycles"], step_violations=step_v,
+                   coherence=coherence, digest=digest)
+        if got != ASYNC_REFERENCE:
+            raise SmokeFailure(f"async@{N} ({route}) differs from the JAX "
+                               f"package's run: {got} vs {ASYNC_REFERENCE}")
+        want_ring = m["cycles"] if transport == "rdma" else 0
+        for kernel, n in counts.items():
+            if n != (want_ring if kernel == "ring" else 0):
+                raise SmokeFailure(f"async@{N} ({route}): {n} launches of "
+                                   f"the {kernel} kernel in {m['cycles']} "
+                                   "cycles")
+        if transport == "rdma":
+            rows["ring"]["launches"] = counts["ring"]
+        finals[transport] = (m["cycles"], convert.sim_numpy_leaves(
+            done.state))
+        say("main", f"async@{N} x {length} (trace cut from the bench's "
+            f"4096 for time), queue capacity {cfg.queue_capacity}, scatter "
+            f"INV, chunk {ASYNC['chunk']}, through {route}: quiescent after "
+            f"{m['cycles']} cycles, {m['instrs_retired'] / wall:.6g} "
+            f"instrs/sec, {wall * 1e3 / m['cycles']:.4f} ms/cycle, wall "
+            f"{wall:.2f} s, ring launches {counts['ring']}, dropped "
+            f"{m['msgs_dropped']}; final state equal to the JAX package's "
+            f"(digest {digest[:16]}, invariant counts {step_v} and "
+            f"{coherence}: the racy workload's, as in JAX)")
+    (c0, a) = finals["none"]
+    for transport in ("rdma", "all_to_all"):
+        c1, b = finals[transport]
+        bad = _leaves_differ(a, b)
+        if c0 != c1 or bad:
+            raise SmokeFailure(f"async@{N}: {transport} ({c1} cycles) and "
+                               f"plain delivery ({c0}) end in different "
+                               f"states (leaf {bad})")
+    say("main", f"async@{N}: plain, rdma and all_to_all delivery, same "
+        f"{c0} cycles, every leaf equal")
+
+
+def phase_multi_card() -> None:
+    import torch
+    from ue22cs343bb1_openmp_assignment_tpu_torch.parallel import ring_kernel
+    n = torch.cuda.device_count()
+    if n < 2:
+        say("multi-card", f"not run: {n} card (the exchange across cards "
+            "needs two or more)")
+        return
+    D = min(n, ring_kernel.MAX_SHARDS)
+    g = torch.Generator().manual_seed(0)
+    obs = [torch.randint(-2**31, 2**31 - 1, (D, 3072, 9), generator=g,
+                         dtype=torch.int32).to(f"cuda:{s}")
+           for s in range(D)]
+    got = ring_kernel.exchange_across(obs)
+    want = ring_kernel.plain_exchange_across(obs)
+    for d in range(D):
+        torch.cuda.synchronize(d)
+        if not torch.equal(got[d], want[d]):
+            raise SmokeFailure(f"exchange across {D} cards: inbox {d} "
+                               "differs from plain")
+    say("multi-card", f"exchange across {D} cards (peer access, one launch "
+        f"per sender): every inbox equal to the per-pair copies")
+
+
 def main() -> int:
     try:
         import torch
@@ -804,6 +1074,8 @@ def main() -> int:
         from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
             deep_fold_kernel, deep_round_kernel, sync_burst_kernel,
             sync_window_kernel)
+        from ue22cs343bb1_openmp_assignment_tpu_torch.parallel import (
+            ring_kernel)
         cfg = bench_cfg(BENCH["num_nodes"])
         phase_build(
             [(deep_fold_kernel.LIBRARY, c)
@@ -816,7 +1088,10 @@ def main() -> int:
                          sync_contended_cfg(3), sync_cfg(SYNC_BIG, 2))]
             + [(sync_burst_kernel.LIBRARY, c)
                for c in (sync_cfg(BENCH["num_nodes"], 1),
-                         sync_contended_cfg(1))])
+                         sync_contended_cfg(1))]
+            # one ring library serves every (D, shape): both are run-time
+            # arguments
+            + [(ring_kernel.LIBRARY, None)])
         rows, st = phase_kernel_vs_plain(cfg)
         rows["round"] = phase_round_vs_plain(cfg, st)
         phase_card_vs_cpu()
@@ -824,12 +1099,16 @@ def main() -> int:
         rows.update(phase_sync_kernels())
         phase_sync_card_vs_cpu()
         phase_sync_main_path(rows)
+        rows["ring"] = phase_ring_kernel()
+        phase_async_card_vs_cpu()
+        phase_async_main_path(rows)
+        phase_multi_card()
     except (SmokeFailure, AssertionError, RuntimeError, ValueError) as e:
         print(f"FAIL: {type(e).__name__}: {e}", flush=True)
         return 1
     say("done", f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [rows[k] for k in FOLD_MODES + ("round",)
-                                  + SYNC_KERNELS]}))
+                                  + SYNC_KERNELS + ("ring",)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

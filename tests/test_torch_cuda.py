@@ -1,6 +1,6 @@
-"""The CUDA kernels (the deep fold, the fused round, and the sync window
-engine's window, replay and burst kernels) against their plain versions,
-on the card.
+"""The CUDA kernels (the deep fold, the fused round, the sync window
+engine's window, replay and burst kernels, and the routed transport's
+ring exchange) against their plain versions, on the card.
 
 Marked ``cuda``: each test skips without a card (decided inside the
 fixture, never at import). The card machine has no JAX, so run this file
@@ -28,6 +28,11 @@ from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import sync_engine as se
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
     sync_window_kernel as swk)
+from ue22cs343bb1_openmp_assignment_tpu_torch.models.system import (
+    CoherenceSystem)
+from ue22cs343bb1_openmp_assignment_tpu_torch.ops import step
+from ue22cs343bb1_openmp_assignment_tpu_torch.parallel import (
+    mesh, ring_kernel, sharded_step)
 
 pytestmark = pytest.mark.cuda
 
@@ -222,3 +227,76 @@ def test_sync_wrappers_refuse_bad_operands(card):
         swk.replay(*args, fl, fills.T.contiguous().T, fills)
     with pytest.raises(ValueError, match="not CUDA"):
         sbk.launch(cfg, *[t.cpu() for t in args[1:]])
+
+
+# -- the message-level engine: the ring exchange and routed delivery ---------
+
+@pytest.mark.parametrize("D,cap,W", [(2, 3072, 9), (4, 1536, 9),
+                                     (8, 768, 9), (4, 7, 7), (3, 5, 3),
+                                     (8, 1, 1)],
+                         ids=["d2", "d4", "d8", "ragged", "ragged3",
+                              "one-word"])
+def test_ring_kernel_equals_plain(card, D, cap, W):
+    """Every word equal, with 16-byte lanes (cap * W a multiple of 4) and
+    ragged ones (scalar copies)."""
+    g = torch.Generator().manual_seed(D * 1000 + cap)
+    ob = torch.randint(-2**31, 2**31 - 1, (D, D, cap, W), generator=g,
+                       dtype=torch.int32).to(card)
+    before = ring_kernel.exchange.launches
+    got = ring_kernel.exchange(ob)
+    assert ring_kernel.exchange.launches == before + 1
+    assert torch.equal(got, ring_kernel.plain_exchange(ob))
+    assert torch.equal(got.cpu(), ring_kernel.exchange(ob.cpu()))
+
+
+def test_ring_wrapper_refuses_bad_operands(card):
+    ob = torch.zeros((4, 4, 8, 9), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="int32"):
+        ring_kernel.exchange(ob.to(torch.int64))
+    with pytest.raises(ValueError, match="contiguous"):
+        ring_kernel.exchange(ob.transpose(2, 3))
+    with pytest.raises(ValueError, match="shards"):
+        ring_kernel.exchange(torch.zeros((9, 9, 2, 9), dtype=torch.int32,
+                                         device=card))
+
+
+def test_routed_async_run_equals_plain_delivery(card):
+    """128 cycles at 1024 nodes: routed through the ring kernel and
+    through all_to_all at D = 4, both equal to plain delivery on the card
+    and on the CPU; the ring launched once a cycle."""
+    cfg = SystemConfig.scale(num_nodes=1024, max_instrs=64)
+    sys0 = CoherenceSystem.from_workload(cfg, "procedural_uniform",
+                                         device=card)
+    cpu = CoherenceSystem.from_workload(cfg, "procedural_uniform",
+                                        device="cpu")
+    want = convert.sim_numpy_leaves(step.run_cycles(cfg, cpu.state, 128))
+    plain = convert.sim_numpy_leaves(step.run_cycles(cfg, sys0.state, 128))
+    layout = mesh.make_layout(1024, 4, device=card)
+    for transport in ("rdma", "all_to_all"):
+        run = sharded_step.make_transport_runner(cfg, layout, 128, transport)
+        before = ring_kernel.exchange.launches
+        got = convert.sim_numpy_leaves(run(sys0.state))
+        launched = ring_kernel.exchange.launches - before
+        assert launched == (128 if transport == "rdma" else 0)
+        for name in want:
+            assert (want[name] == got[name]).all(), (transport, name)
+            assert (want[name] == plain[name]).all(), name
+
+
+def test_ring_exchange_across_cards(card):
+    """One shard per card, peer access on, one launch per sender."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA cards")
+    D = min(n, ring_kernel.MAX_SHARDS)
+    g = torch.Generator().manual_seed(5)
+    obs = [torch.randint(-2**31, 2**31 - 1, (D, 37, 9), generator=g,
+                         dtype=torch.int32).to(f"cuda:{s}")
+           for s in range(D)]
+    before = ring_kernel.exchange.launches
+    got = ring_kernel.exchange_across(obs)
+    assert ring_kernel.exchange.launches == before + D
+    for d, (a, b) in enumerate(zip(got,
+                                   ring_kernel.plain_exchange_across(obs))):
+        torch.cuda.synchronize(d)
+        assert a.device == b.device and torch.equal(a, b), d

@@ -104,3 +104,27 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
             env={"CUDA_VISIBLE_DEVICES": "", "PATH": "/usr/bin:/bin"})
         assert out.returncode != 0
         assert '"ok"' not in out.stdout and "FAIL" in out.stdout
+
+
+def test_async_entry_points_need_the_card_unless_asked_for_cpu(monkeypatch):
+    """The message-level engine's entry points (slice 4) follow the same
+    device rule: None means the card."""
+    from ue22cs343bb1_openmp_assignment_tpu_torch.models.system import (
+        CoherenceSystem)
+    from ue22cs343bb1_openmp_assignment_tpu_torch.parallel import mesh
+    from ue22cs343bb1_openmp_assignment_tpu_torch.state import init_state
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, cfg = cfg_pair(16, max_instrs=4)
+    for make in (lambda: CoherenceSystem.from_workload(
+                     cfg, "procedural_uniform"),
+                 lambda: CoherenceSystem.from_test_dir(
+                     str(ROOT / "tests" / "fixtures" / "mini")),
+                 lambda: init_state(cfg),
+                 lambda: mesh.make_layout(16, 4)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    sys_ = CoherenceSystem.from_workload(cfg, "procedural_uniform",
+                                         device="cpu")
+    assert sys_.state.mb_pack.device.type == "cpu"
+    assert mesh.make_layout(16, 4, device="cpu").device == torch.device(
+        "cpu")

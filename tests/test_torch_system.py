@@ -34,7 +34,8 @@ from tests.torch_parity import BENCH_DEEP, assert_states_equal, cfg_pair
 
 LENGTH, CHUNK = 32, 16
 NO_LAUNCHES = {"pre": 0, "flags": 0, "replay": 0, "round": 0,
-               "sync_burst": 0, "sync_window": 0, "sync_replay": 0}
+               "sync_burst": 0, "sync_window": 0, "sync_replay": 0,
+               "ring": 0}
 
 
 @functools.lru_cache(maxsize=None)
@@ -244,3 +245,20 @@ def test_bench_window_options_need_the_sync_engine(capsys):
             cfg.proc_local_permille) == (3, 4, True, 800)
     assert bench.sync_config(64, 1).drain_depth == 16
     assert bench.sync_config(64, 2, drain_depth=7).drain_depth == 7
+
+
+@pytest.mark.parametrize("extra,transport", [
+    ((), "none"), (("--shards", "4"), "rdma"),
+    (("--shards", "4", "--transport", "all_to_all"), "all_to_all")],
+    ids=["unrouted", "rdma", "all_to_all"])
+def test_bench_async_engine_on_cpu(capsys, extra, transport):
+    """--engine async runs the message-level engine to quiescence; the
+    routed runs end after the same cycles (the CPU runs the ring's plain
+    version: no launch)."""
+    doc = _bench_doc(capsys, "--engine", "async", "--nodes", "32", *extra)
+    assert doc["metric"] == "instrs_per_sec (async, procedural_uniform)"
+    assert doc["instrs_retired"] == 32 * 8 and doc["msgs_dropped"] == 0
+    assert doc["transport"] == transport and doc["cycles"] % 4 == 0
+    assert doc["launches"] == NO_LAUNCHES
+    assert doc["config"]["queue_capacity"] == 64
+    assert bench.main(["--shards", "2", "--device", "cpu"]) == 2

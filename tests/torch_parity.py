@@ -68,3 +68,54 @@ def assert_leaves_equal(want: dict, got: dict, where: str = "") -> None:
 def assert_states_equal(jax_st, port_st, where: str = "") -> None:
     assert_leaves_equal(convert.numpy_leaves(jax_st),
                         convert.to_numpy(port_st), where)
+
+
+def jax_sim_state(leaves: dict):
+    """A JAX SimState from a flat dict of numpy leaves in the JAX
+    package's dtypes (``convert.sim_numpy_leaves``)."""
+    from ue22cs343bb1_openmp_assignment_tpu.state import Metrics, SimState
+    metrics = Metrics(**{
+        k.split(".", 1)[1]: jnp.asarray(v)
+        for k, v in leaves.items() if k.startswith("metrics.")})
+    return SimState(**{k: jnp.asarray(v) for k, v in leaves.items()
+                       if not k.startswith("metrics.")}, metrics=metrics)
+
+
+def assert_sim_states_equal(jax_st, port_st, where: str = "") -> None:
+    """Every SimState leaf and metric equal, dtypes included."""
+    want = convert.sim_numpy_leaves(jax_st)
+    got = convert.sim_numpy_leaves(port_st)
+    for k in want:
+        assert want[k].dtype == got[k].dtype, (
+            f"{where}{k}: dtype {want[k].dtype} vs {got[k].dtype}")
+    assert_leaves_equal(want, got, where)
+
+
+def as_numpy(x):
+    """A JAX array, a torch tensor or a Python scalar as numpy; uint32
+    words compare as their int32 bit patterns."""
+    if hasattr(x, "detach"):
+        a = x.detach().cpu().numpy()
+    else:
+        a = np.asarray(x)
+    return a.view(np.int32) if a.dtype == np.uint32 else a
+
+
+def assert_trees_equal(want, got, where: str = "") -> None:
+    """Nested dicts / tuples / lists of arrays (JAX on one side, torch on
+    the other) equal leaf by leaf; None matches None."""
+    if isinstance(want, dict):
+        assert sorted(want) == sorted(got), (where, sorted(want), sorted(got))
+        for k in want:
+            assert_trees_equal(want[k], got[k], f"{where}{k}.")
+    elif isinstance(want, (tuple, list)):
+        assert len(want) == len(got), (where, len(want), len(got))
+        for i, (a, b) in enumerate(zip(want, got)):
+            assert_trees_equal(a, b, f"{where}{i}.")
+    elif want is None:
+        assert got is None, where
+    else:
+        a, b = as_numpy(want), as_numpy(got)
+        assert a.shape == b.shape, f"{where}: shape {a.shape} vs {b.shape}"
+        assert np.array_equal(a.astype(np.int64), b.astype(np.int64)), (
+            f"{where}: {int(np.sum(a != b))} elements differ")

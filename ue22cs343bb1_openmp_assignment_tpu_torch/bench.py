@@ -6,6 +6,9 @@
         [--fold-impl kernel|plain] [--fused-round auto|on|off]
         [--window-kernels auto|on|off] [--profile ROUNDS]
         [--device cuda|cpu]
+    python -m ue22cs343bb1_openmp_assignment_tpu_torch.bench --engine async
+        [--queue-capacity Q] [--shards D] [--transport rdma|all_to_all]
+        [--profile CYCLES]
 
 Runs a transactional engine at the JAX ``bench.py``'s defaults (4096
 nodes, 4096 procedural-uniform instructions per node, locality 0.8,
@@ -27,10 +30,22 @@ CUDA kernels (``ops/sync_window_kernel``, or ``ops/sync_burst_kernel``
 at txn_width 1); ``auto`` turns it on for a card, ``off`` measures the
 plain rounds.
 
-The JSON line carries instrs/sec, rounds, ms/round, the card's name and
-power limit, which round ran and the kernels' launch counts of one run.
-``--profile R`` adds a torch.profiler window of R rounds: device-busy
-share, device launches and device time by kernel.
+``--engine async`` is the message-level engine (``ops.step``) at the JAX
+``bench.py``'s async defaults: scatter INV (``SystemConfig.scale``),
+queue capacity 64, locality 0.8, chunk 64, run to quiescence
+(``run_chunked_to_quiescence``). Its stream is ``procedural_uniform``:
+the JAX async default ``uniform`` draws from jax.random, whose twin the
+port does not have yet, so the metric names the workload. ``--shards D``
+routes phase-3 delivery over D shards of the node axis
+(``parallel.rdma_comm.make_routed_deliver``): ``--transport rdma`` (the
+ring kernel, ``parallel/ring_kernel``) or ``all_to_all`` (the plain lane
+exchange); one shard delivers unrouted.
+
+The JSON line carries instrs/sec, rounds (cycles for the async engine),
+ms/round (ms/cycle), the card's name and power limit, which path ran and
+the kernels' launch counts of one run. ``--profile R`` adds a
+torch.profiler window of R rounds or cycles: device-busy share, device
+launches and device time by kernel.
 """
 
 from __future__ import annotations
@@ -55,12 +70,14 @@ from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import sync_engine as se
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
     sync_window_kernel as swk)
+from ue22cs343bb1_openmp_assignment_tpu_torch.parallel import ring_kernel
 
 #: the port's kernels by the name the profiler reports them under
 KERNEL_NAMES = {"fold": "deep_fold_kernel", "round": "deep_round_kernel",
                 "sync_burst": "sync_burst_kernel",
                 "sync_window": "sync_window_kernel",
-                "sync_replay": "sync_replay_kernel"}
+                "sync_replay": "sync_replay_kernel",
+                "ring": "ring_exchange_kernel"}
 
 
 def deep_config(nodes: int) -> SystemConfig:
@@ -88,7 +105,8 @@ def sync_config(nodes: int, txn_width: int = 3, drain_depth=None,
 
 
 _COUNTED = {"round": drk.fused_round, "sync_burst": sbk.burst,
-            "sync_window": swk.window, "sync_replay": swk.replay}
+            "sync_window": swk.window, "sync_replay": swk.replay,
+            "ring": ring_kernel.exchange}
 
 
 def reset_launch_counts() -> None:
@@ -148,14 +166,36 @@ def device_events(fn) -> tuple:
              if e.device_type == DeviceType.CUDA], wall)
 
 
+#: the async engine's stream: the JAX bench's ``uniform`` needs the
+#: jax.random twin the port does not have yet
+ASYNC_WORKLOAD = "procedural_uniform"
+
+
+def async_config(nodes: int, trace_len: int,
+                 queue_capacity: int = 64) -> SystemConfig:
+    """bench.py's async-engine config at ``nodes``: scatter INV, the
+    queue capacity, locality 0.8, ``trace_len`` instructions a node."""
+    return SystemConfig.scale(num_nodes=nodes, queue_capacity=queue_capacity,
+                              max_instrs=trace_len, proc_local_permille=800)
+
+
 def profile_rounds(cfg, st, rounds: int, fold_impl: str) -> dict:
     """Device-busy share, device launches and device time by kernel over
     `rounds` rounds (the wall time here includes the profiler's cost)."""
+    return profile_steps(lambda s: se.round_step(cfg, s, fold_impl), st,
+                         rounds)
+
+
+def profile_steps(step_fn, st, rounds: int) -> dict:
+    """Device-busy share, device launches and device time by kernel over
+    `rounds` calls of ``step_fn`` (a round, or a cycle of the async
+    engine, whose numbers read per cycle; the wall time here includes
+    the profiler's cost)."""
     box = [st]
 
     def run():
         for _ in range(rounds):
-            box[0] = se.round_step(cfg, box[0], fold_impl)
+            box[0] = step_fn(box[0])
 
     events, wall = device_events(run)
     by_name = {}
@@ -179,7 +219,8 @@ def profile_rounds(cfg, st, rounds: int, fold_impl: str) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--engine", choices=["deep", "sync"], default="deep")
+    ap.add_argument("--engine", choices=["deep", "sync", "async"],
+                    default="deep")
     ap.add_argument("--nodes", type=int, default=4096)
     ap.add_argument("--trace-len", type=int, default=4096)
     ap.add_argument("--chunk", type=int, default=64)
@@ -194,8 +235,18 @@ def main(argv=None) -> int:
                     default="auto")
     ap.add_argument("--profile", type=int, default=0, metavar="ROUNDS")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--queue-capacity", type=int, default=64)
+    ap.add_argument("--shards", type=int, default=1)
+    ap.add_argument("--transport", choices=["rdma", "all_to_all"],
+                    default="rdma")
     args = ap.parse_args(argv)
     dev = torch.device(args.device)
+    if args.engine == "async":
+        return async_main(args, dev)
+    if args.shards != 1:
+        print("error: --shards routes the async engine's delivery; use "
+              "--engine async", file=sys.stderr)
+        return 2
     if args.engine == "sync":
         on = args.window_kernels == "on" or (
             args.window_kernels == "auto" and dev.type == "cuda")
@@ -243,6 +294,70 @@ def main(argv=None) -> int:
             cfg, args.trace_len, device=dev), 16, args.fold_impl)
         doc["profile"] = profile_rounds(cfg, st, args.profile,
                                         args.fold_impl)
+    print(json.dumps(doc))
+    return 0
+
+
+def async_main(args, dev: torch.device) -> int:
+    """``--engine async``: the message-level engine to quiescence."""
+    from ue22cs343bb1_openmp_assignment_tpu_torch.models.system import (
+        CoherenceSystem)
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import step
+    from ue22cs343bb1_openmp_assignment_tpu_torch.parallel import (
+        mesh, sharded_step)
+    if args.nodes % args.shards:
+        print(f"error: --shards {args.shards} must divide --nodes "
+              f"{args.nodes}", file=sys.stderr)
+        return 2
+    cfg = dataclasses.replace(
+        async_config(args.nodes, args.trace_len, args.queue_capacity),
+        transport=args.transport)
+    deliver_fn = sharded_step.transport_deliver(
+        cfg, mesh.make_layout(args.nodes, args.shards, device=dev))
+    transport = getattr(deliver_fn, "transport", "none")
+    max_cycles = 200 * args.trace_len
+
+    def fresh():
+        return CoherenceSystem.from_workload(cfg, ASYNC_WORKLOAD,
+                                             device=dev).state
+
+    def one_run():
+        st = fresh()
+        _sync(dev)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        st = step.run_chunked_to_quiescence(cfg, st, args.chunk, max_cycles,
+                                            deliver_fn=deliver_fn)
+        _sync(dev)
+        return time.perf_counter() - t0, st, launch_counts()
+
+    one_run()                                   # warm-up, discarded
+    runs = [one_run() for _ in range(args.reps)]
+    wall = statistics.median(r[0] for r in runs)
+    st, launches = runs[0][1], runs[0][2]
+    if not bool(st.quiescent()):
+        print("error: the run did not reach quiescence", file=sys.stderr)
+        return 1
+    cycles = int(st.metrics.cycles)
+    retired = int(st.metrics.instrs_retired)
+    doc = {"metric": f"instrs_per_sec (async, {ASYNC_WORKLOAD})",
+           "instrs_per_sec": retired / wall, "cycles": cycles,
+           "ms_per_cycle": wall * 1e3 / cycles, "wall_s": wall,
+           "reps_s": [r[0] for r in runs], "instrs_retired": retired,
+           "msgs_dropped": int(st.metrics.msgs_dropped),
+           "card": card_name_and_limit(dev), "engine": "async",
+           "workload": ASYNC_WORKLOAD, "shards": args.shards,
+           "transport": transport, "launches": launches,
+           "config": {"nodes": args.nodes, "trace_len": args.trace_len,
+                      "chunk": args.chunk,
+                      "queue_capacity": cfg.queue_capacity,
+                      "inv_mode": cfg.inv_mode,
+                      "proc_local_permille": cfg.proc_local_permille}}
+    if args.profile:
+        st = step.run_cycles(cfg, fresh(), 64, deliver_fn=deliver_fn)
+        doc["profile"] = profile_steps(
+            lambda s: step.cycle(cfg, s, deliver_fn=deliver_fn), st,
+            args.profile)
     print(json.dumps(doc))
     return 0
 
