@@ -17,8 +17,10 @@ Phases (each prints its own line; any failure exits non-zero):
    the round kernel also in a contended 256-node config (three
    absorption waves, attempt-based flags). The kernel's device time,
    the plain version's CUDA-event time, and the bound: bytes moved over
-   HBM rate or integer instructions (counted on the kernel's SASS,
-   ``cuobjdump``) over the int32 rate;
+   HBM rate or integer operations over the int32 rate (the integer
+   instructions of the kernel's SASS, counted with ``cuobjdump``; for
+   the deep rows capped by the recorded work of DEEP_WORK_PER_NODE,
+   both printed);
 4. card vs CPU: 64 rounds of a 256-node copy of the bench deep config
    on the card through the fold kernels and through the round kernel,
    each against the plain round on the CPU, every state leaf and metric
@@ -110,6 +112,17 @@ SOURCES = {"pre": CSRC + "deep_fold.cu", "flags": CSRC + "deep_fold.cu",
            "ring": CSRC + "ring_exchange.cu"}
 FOLD_MODES = ("pre", "flags", "replay")
 SYNC_KERNELS = ("sync_window", "sync_replay", "sync_burst")
+#: The recorded work of the deep rows (the three fold modes and the
+#: round), in integer operations a node: what ``sass_ops`` counted on
+#: the SASS of the one-thread-per-node kernels that the shared-memory
+#: fold replaced (csrc/deep_fold.cu and csrc/deep_round.cu with their
+#: tables in registers, at deep@4096, printed as ``N x {per_node}`` by
+#: that tree's chip_smoke.py). A deep row's work is the smaller of this
+#: and what the current kernel issues (``deep_work``): the function
+#: needs no more than either, and a redesign that issues more does not
+#: raise the yardstick it is judged by.
+DEEP_WORK_PER_NODE = {"pre": 10915, "flags": 10928, "replay": 17983,
+                      "round": 43829}
 
 
 class SmokeFailure(Exception):
@@ -200,11 +213,23 @@ def _is_op(opcode: str) -> bool:
 
 
 def sass_ops(sass: str, function: str, steps: int, w_loops: int,
-             barriers: int = 0) -> dict:
+             barriers: int = 0, every_path: bool = False) -> dict:
     """Integer operations per node of the kernel whose mangled name
     matches ``function``, counted on its machine code (``cuobjdump
     -sass``): the integer instructions that every thread runs for a
     node whatever the data.
+
+    ``every_path`` is for the deep kernels, whose folds read their
+    tables from shared memory and whose window loops end early: block
+    barriers sit beside the grid barriers, so no code is fenced off, and
+    every instruction of a window loop counts, on every path (the most
+    a loop iteration can issue; ``steps`` is then the loop's
+    iterations). The window loops are the ``w_loops`` innermost loops
+    with the most integer instructions, among those nested in another
+    loop (the round kernel's node loops) where any is, else among all
+    (the fold kernel). The choice is checked: each chosen loop reads
+    shared memory (the fold's tables) and holds at least twice the
+    integer instructions of any loop passed over.
 
     - Main code is everything up to the last EXIT; the blocks after it
       run only when a warp diverges at a barrier.
@@ -239,10 +264,10 @@ def sass_ops(sass: str, function: str, steps: int, w_loops: int,
     end = exits[-1]
     ins = [i for i in ins if i[0] <= end]
     bars = [at for at, op, _ in ins if op.startswith("BAR.SYNC")]
-    if len(bars) != 2 * barriers:
+    if not every_path and len(bars) != 2 * barriers:
         raise SmokeFailure(f"{function}: {len(bars)} BAR.SYNC for "
                            f"{barriers} grid barriers")
-    fences = list(zip(bars[::2], bars[1::2]))
+    fences = [] if every_path else list(zip(bars[::2], bars[1::2]))
 
     def fenced(at):
         return any(lo <= at <= hi for lo, hi in fences)
@@ -259,15 +284,35 @@ def sass_ops(sass: str, function: str, steps: int, w_loops: int,
               if any(o != lp and o[0] <= lp[0] and lp[1] <= o[1]
                      for o in loops)]
     wl = loops if len(loops) == 1 else nested
-    if len(wl) != w_loops:
+    if every_path:
+        def count(lp, ok):
+            return sum(1 for at, op, _ in ins
+                       if lp[0] <= at <= lp[1] and ok(op))
+        inner = [lp for lp in (nested or loops)
+                 if not any(o != lp and lp[0] <= o[0] and o[1] <= lp[1]
+                            for o in loops)]
+        inner.sort(key=lambda lp: count(lp, _is_op))
+        wl, passed = sorted(inner[len(inner) - w_loops:]), inner[:-w_loops]
+        most_passed = max((count(lp, _is_op) for lp in passed), default=0)
+        if (len(inner) < w_loops
+                or any(count(lp, lambda op: op.startswith("LDS")) == 0
+                       or count(lp, _is_op) < 2 * most_passed
+                       for lp in wl)):
+            raise SmokeFailure(
+                f"{function}: no {w_loops} window loops stand out: "
+                f"integer instructions of the innermost loops "
+                f"{[count(lp, _is_op) for lp in inner]}, shared-memory "
+                f"reads {[count(lp, lambda op: op.startswith('LDS')) for lp in inner]}")
+    elif len(wl) != w_loops:
         raise SmokeFailure(f"{function}: expected {w_loops} window loops, "
                            f"found {len(wl)} among {len(loops)} loops")
     skips = [(at, to) for at, to in jumps if to > at
              and not any(at < lo and hi < to <= hi + 64 for lo, hi in loops)]
     sure = [(at, op) for at, op, _ in ins if not fenced(at)
             and not any(a < at < t for a, t in skips)]
-    in_w = [sum(1 for at, op in sure if lo <= at <= hi and _is_op(op))
-            for lo, hi in wl]
+    in_w = [sum(1 for at, op in ([(at, op) for at, op, _ in ins]
+                                 if every_path else sure)
+                if lo <= at <= hi and _is_op(op)) for lo, hi in wl]
     once = sum(1 for at, op in sure if _is_op(op)
                and not any(lo <= at <= hi for lo, hi in wl))
     return dict(per_node=sum(in_w) * steps + once, per_step=in_w, once=once,
@@ -350,6 +395,34 @@ def compare(label: str, k_out: list, p_out: list) -> int:
     return 0
 
 
+def fold_iterations(cfg, unroll: int) -> int:
+    """Iterations of the fold's window loop over the W steps of ``cfg``
+    when the kernel runs ``unroll`` steps an iteration (its
+    ``deep_*_window_unroll()``; the steps left over run outside the
+    loop)."""
+    return (cfg.drain_depth + cfg.txn_width) // unroll
+
+
+def deep_work(kernel: str, issued: int) -> int:
+    """Integer operations a node of a deep row's bound: what the
+    current kernel issues (``issued``, its SASS count), capped by the
+    recorded work of ``kernel``."""
+    return min(DEEP_WORK_PER_NODE[kernel], issued)
+
+
+def deep_io_bytes(cfg, kernel: str) -> int:
+    """Bytes a deep kernel ("pre", "flags", "replay" or "round") must
+    move at ``cfg``: each input read once, each output written once."""
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
+        deep_fold_kernel as dfk)
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
+        deep_round_kernel as drk)
+    if kernel == "round":
+        return sum(drk.io_contract_bytes(cfg))
+    in_rows, out_rows = dfk.io_rows(cfg, kernel)
+    return 4 * cfg.num_nodes * (in_rows + sum(out_rows))
+
+
 def row(name: str, kernel: str, ms: float, plain_ms: float, io_bytes: int,
         ops: int) -> dict:
     t_bytes = io_bytes / HBM_BYTES_PER_S
@@ -390,6 +463,9 @@ def phase_kernel_vs_plain(cfg) -> tuple:
     st = se.run_rounds(cfg, st, 8, fold_impl="plain")
     args = fold_inputs(cfg, st)
     sass = kernel_sass(dfk.LIBRARY, cfg)
+    lib = dfk.LIBRARY.load(cfg)
+    smem = lib.deep_fold_smem_bytes()
+    iterations = fold_iterations(cfg, lib.deep_fold_window_unroll())
     rows = {}
     for mode, wrapper in dfk.WRAPPERS.items():
         plain = dfk.PLAIN[mode]
@@ -402,18 +478,21 @@ def phase_kernel_vs_plain(cfg) -> tuple:
         ms = kernel_ms(lambda: [wrapper(*a) for _ in range(20)],
                        "deep_fold_kernel")
         plain_ms = event_ms(lambda: plain(*a), 3)
-        in_rows, out_rows = dfk.io_rows(cfg, mode)
-        io_bytes = 4 * cfg.num_nodes * (in_rows + sum(out_rows))
+        io_bytes = deep_io_bytes(cfg, mode)
         count = sass_ops(sass, rf"deep_fold_kernelILi{FOLD_MODES.index(mode)}E",
-                         cfg.drain_depth + cfg.txn_width, 1)
-        ops = count["per_node"] * cfg.num_nodes
+                         iterations, 1, every_path=True)
+        work = deep_work(mode, count["per_node"])
+        ops = work * cfg.num_nodes
         rows[mode] = row(f"deep_fold_{mode}", mode, ms, plain_ms, io_bytes,
                          ops)
         say("kernel", f"{mode}: bit-identical to plain over "
             f"{len(k_out)} outputs; kernel {ms:.4f} ms, plain "
             f"{plain_ms:.2f} ms, bound {rows[mode]['bound_ms']:.5f} ms "
             f"({rows[mode]['bound_by']}: {io_bytes} B, {ops} integer ops "
-            f"= N x {count['per_node']}: {count})")
+            f"= N x {work}, the smaller of the kernel's N x "
+            f"{count['per_node']} ({count}) and the recorded N x "
+            f"{DEEP_WORK_PER_NODE[mode]}); {smem} B of dynamic shared "
+            f"memory a block")
     return rows, st
 
 
@@ -438,20 +517,23 @@ def phase_round_vs_plain(cfg, st) -> dict:
     ms = kernel_ms(lambda: [drk.fused_round(*args) for _ in range(20)],
                    "deep_round_kernel")
     plain_ms = event_ms(lambda: drk.plain_round(*args), 3)
-    io_bytes = sum(drk.io_contract_bytes(cfg))
-    barriers = 6 + 2 * (cfg.deep_waves - 1)
+    io_bytes = deep_io_bytes(cfg, "round")
+    lib = drk.LIBRARY.load(cfg)
     count = sass_ops(kernel_sass(drk.LIBRARY, cfg), r"deep_round_kernel",
-                     cfg.drain_depth + cfg.txn_width,
-                     2 + int(cfg.deep_exact_flags), barriers)
-    ops = count["per_node"] * cfg.num_nodes
+                     fold_iterations(cfg, lib.deep_round_window_unroll()),
+                     2 + int(cfg.deep_exact_flags), every_path=True)
+    work = deep_work("round", count["per_node"])
+    ops = work * cfg.num_nodes
     r = row("deep_round", "round", ms, plain_ms, io_bytes, ops)
-    grid = drk.LIBRARY.load(cfg).deep_round_grid(cfg.num_nodes)
     say("kernel", f"round: bit-identical to plain_round over {len(k_out)} "
         f"outputs at deep@4096 and in the contended 256-node config "
-        f"(waves 3, attempt flags); kernel {ms:.4f} ms ({grid} blocks of "
-        f"128), plain {plain_ms:.2f} ms, bound {r['bound_ms']:.5f} ms "
-        f"({r['bound_by']}: {io_bytes} B, {ops} integer ops = N x "
-        f"{count['per_node']}: {count})")
+        f"(waves 3, attempt flags); kernel {ms:.4f} ms (grid "
+        f"{lib.deep_round_grid(cfg.num_nodes)} blocks, "
+        f"{lib.deep_round_smem_bytes()} B of dynamic shared memory a "
+        f"block), plain {plain_ms:.2f} ms, bound {r['bound_ms']:.5f} ms "
+        f"({r['bound_by']}: {io_bytes} B, {ops} integer ops = N x {work}, "
+        f"the smaller of the kernel's N x {count['per_node']} ({count}) "
+        f"and the recorded N x {DEEP_WORK_PER_NODE['round']})")
     return r
 
 

@@ -61,9 +61,19 @@ def _equal(a: dict, b: dict, where: str):
             assert torch.equal(v, b[k]), f"{where}{k}"
 
 
+#: table shapes that change the fold's layout: lines, own entries (S = 8
+#: and 32, the latter over 48 KB of shared memory a block), slots,
+#: owner-value slots
+SHAPES = [dict(cache_size=2), dict(cache_size=8), dict(mem_size=8),
+          dict(mem_size=32), dict(deep_slots=1, proc_local_permille=500),
+          dict(deep_ownerval_slots=2, proc_local_permille=500)]
+SHAPE_IDS = ["c2", "c8", "s8", "s32", "q1", "g2"]
+
+
 @pytest.mark.parametrize("kw", [
     {}, dict(proc_local_permille=300, deep_waves=3, deep_read_storm=True),
-    dict(deep_slots=2)], ids=["bench", "waves3-storm", "q2"])
+    dict(deep_slots=2)] + SHAPES, ids=["bench", "waves3-storm", "q2"]
+    + SHAPE_IDS)
 def test_kernel_equals_plain_mid_run(card, kw):
     cfg = _cfg(1000, **kw)      # not a multiple of the block size
     st = se.run_rounds(cfg, se.procedural_state(cfg, 4096, device=card), 6,
@@ -105,10 +115,18 @@ def test_wrapper_refuses_bad_operands(card):
 
 @pytest.mark.parametrize("kw", [
     {}, dict(proc_local_permille=300, deep_waves=3),
-    dict(proc_local_permille=500, deep_exact_flags=False)],
-    ids=["waves1", "waves3", "noexact"])
+    dict(proc_local_permille=500, deep_exact_flags=False)] + SHAPES
+    + [dict(num_nodes=65536, deep_slots=2)],
+    ids=["waves1", "waves3", "noexact"] + SHAPE_IDS + ["n65536"])
 def test_round_kernel_equals_plain_round(card, kw):
-    cfg = _cfg(1000, fused_round=True, **kw)   # 8 blocks, not a multiple
+    kw = dict(kw)
+    n = kw.pop("num_nodes", 1000)       # 1000: not a multiple of a block
+    cfg = _cfg(n, fused_round=True, **kw)
+    if n > 1000:
+        # more nodes than resident threads: the grid is capped, and the
+        # kernel's node loops go round more than once
+        lib = drk.LIBRARY.load(cfg)
+        assert lib.deep_round_grid(n) == lib.deep_round_grid(2 * n)
     st = se.run_rounds(cfg, se.procedural_state(cfg, 4096, device=card), 6,
                        fold_impl="plain")
     args = drk.round_inputs(cfg, st)

@@ -23,6 +23,7 @@ from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
     deep_fold_kernel as dfk)
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import sync_engine as tse
 
+import chip_smoke
 from chip_smoke import fold_inputs
 from tests.torch_parity import BENCH_DEEP, cfg_pair, jax_state
 
@@ -118,6 +119,54 @@ def test_kernel_io_contract():
     _, big = cfg_pair(64, **dict(BENCH_DEEP, deep_slots=40))
     with pytest.raises(ValueError, match="32-bit masks"):
         dfk.defines(big)
+
+
+@pytest.mark.parametrize("kernel,bound_ms", [
+    ("pre", 0.00267), ("flags", 0.00267), ("replay", 0.00440),
+    ("round", 0.0107)])
+def test_deep_bound_work_is_capped_by_the_recorded_work(kernel, bound_ms):
+    """chip_smoke.py bounds a deep row by the integer operations that the
+    kernel issues, capped by the recorded work of the one-thread-per-node
+    kernels (DEEP_WORK_PER_NODE), so that a redesign that issues more
+    cannot raise its own bound. The cap at deep@4096 is 0.00267,
+    0.00267, 0.00440 and 0.0107 ms, operation-bound, to three figures."""
+    recorded = chip_smoke.DEEP_WORK_PER_NODE[kernel]
+    assert chip_smoke.deep_work(kernel, recorded + 1) == recorded
+    assert chip_smoke.deep_work(kernel, recorded - 1) == recorded - 1
+    cfg = chip_smoke.bench_cfg(4096)
+    r = chip_smoke.row(f"deep_{kernel}", kernel, 0.0, 0.0,
+                       chip_smoke.deep_io_bytes(cfg, kernel),
+                       recorded * cfg.num_nodes)
+    assert float(f"{r['bound_ms']:.3g}") == bound_ms
+    assert r["bound_by"] == "operations"
+
+
+def _sass(small_loop_ops: int, window_reads: str = "LDS R1, [R0]") -> str:
+    """A made-up listing: a node loop holding a window loop (one shared-
+    memory read, six integer instructions) and a smaller loop."""
+    body = (["IADD3 R0, R0, 0x1, RZ", "IADD3 R0, R0, 0x1, RZ",
+             window_reads] + ["IADD3 R2, R2, 0x1, RZ"] * 6
+            + ["BRA 0x20"] + ["IADD3 R3, R3, 0x1, RZ"] * small_loop_ops
+            + ["BRA 0xa0", "BRA 0x10", "EXIT"])
+    return "\n".join(["Function : fake_kernel"]
+                     + [f"  /*{16 * i:04x}*/   {ins} ;"
+                        for i, ins in enumerate(body)])
+
+
+def test_sass_ops_every_path_checks_its_window_loops():
+    """The deep rows' SASS count takes the innermost loops nested in the
+    node loops with the most integer instructions as the window loops,
+    counted ``steps`` times; it refuses a choice that does not stand out
+    (a loop passed over with more than half as many instructions) or a
+    chosen loop that reads no shared memory."""
+    count = chip_smoke.sass_ops(_sass(2), "fake", 4, 1, every_path=True)
+    assert count["per_step"] == [6]
+    assert count["once"] == 4
+    assert count["per_node"] == 6 * 4 + 4
+    for listing in (_sass(4), _sass(2, "LDG.E R1, [R0.64]")):
+        with pytest.raises(chip_smoke.SmokeFailure,
+                           match="no 1 window loops stand out"):
+            chip_smoke.sass_ops(listing, "fake", 4, 1, every_path=True)
 
 
 @pytest.mark.slow

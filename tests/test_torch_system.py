@@ -107,6 +107,18 @@ def test_bench_prints_one_json_line_on_cpu(capsys):
     assert doc["fused_round"] is False      # auto: the card only
 
 
+def test_bench_stays_inside_the_claim_key_budget(capsys):
+    """From 8192 nodes up the claim keys leave fewer rounds than the
+    bench's default cap of 100,000 (65,535 at 8192 nodes, 8191 at
+    65536): the bench caps its run at the budget instead of refusing to
+    start, as the JAX bench does."""
+    rc = bench.main(["--nodes", "8192", "--trace-len", "2", "--chunk", "4",
+                     "--reps", "1", "--device", "cpu"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert rc == 0 and len(lines) == 1
+    assert json.loads(lines[0])["instrs_retired"] == 8192 * 2
+
+
 @pytest.mark.parametrize("mode,fused", [("on", True), ("off", False)])
 def test_bench_fused_round_flag_on_cpu(capsys, mode, fused):
     """--fused-round on runs the round kernel's path (its plain version

@@ -264,8 +264,12 @@ def main(argv=None) -> int:
         _sync(dev)
         reset_launch_counts()
         t0 = time.perf_counter()
-        st = se.run_sync_to_quiescence(cfg, st, args.chunk,
-                                       fold_impl=args.fold_impl)
+        # stay inside the claim-key round budget at large N (8191
+        # rounds at 65536 nodes), as the JAX bench does
+        st = se.run_sync_to_quiescence(
+            cfg, st, args.chunk,
+            max_rounds=min(100_000, se.claim_max_rounds(cfg) - 1),
+            fold_impl=args.fold_impl)
         _sync(dev)
         return time.perf_counter() - t0, st, launch_counts()
 

@@ -1,4 +1,5 @@
-// Deep-window fold kernel for Hopper (sm_90a): one thread per node.
+// Deep-window fold kernel for Hopper (sm_90a): one thread per node, the
+// node's own-directory tables in shared memory.
 //
 // Replaces the three Pallas TPU kernels of the JAX package's
 // ops/pallas_deep.py, which share one fold body (_run_fold):
@@ -10,30 +11,28 @@
 //                   emits the committed cache, own-directory rows, slot
 //                   commit/release records, owner-value slots, counters)
 // as ONE body with three output modes (template parameter MODE). The
-// body is ops/deep_fold.fold_step iterated over the W window steps,
-// written out for a single node; ops/deep_fold.py is its plain version
-// and the parity reference.
+// body is csrc/deep_fold.cuh (dfold::fold_node), shared with the fused
+// round kernel (csrc/deep_round.cu); ops/deep_fold.py is its plain
+// version and the parity reference.
 //
 // Layout: every input and output keeps the transposed [rows, N] int32
 // layout of the Pallas kernels (row r of node i at r * n + i), so the
-// round middle is unchanged and loads/stores along N coalesce across a
-// warp.
+// round middle is unchanged and each thread's loads and stores along N
+// coalesce across a warp. A thread copies its node's own-directory rows
+// into its column of the block's tables (7 x S x 64 x 4 B = 28,672 B of
+// dynamic shared memory a 64-thread block at S = 16) and touches no
+// other column, so the kernel needs no barrier; the outputs are stored
+// straight from the thread that owns the node.
 //
-// What bounds it on the H100: at the bench shapes (C=4, S=16, Q=3, G=1,
-// W=16) a replay call moves about 1.2 KB per node (about 5 MB at
-// N=4096, 1.5 us at 3.35 TB/s) and executes about 18k integer
-// instructions per node (about 11k in the pre and flag modes; most are
-// the select chains of the table reads and writes), about 4.4 us at
-// N=4096 on the int32 lanes, so integer work bounds it before memory.
-// It runs several times slower than that: launch latency and the
-// latency of one thread's long dependent chain are the limit. One thread
-// per node at 128 threads a block gives 32 blocks at N=4096, so most of
-// the 132 SMs idle; that is what holds the kernel back, and the next
-// step is to split a node's table work across lanes.
-//
-// The fold body is csrc/deep_fold.cuh (dfold::fold_node), shared with
-// the fused round kernel (csrc/deep_round.cu); each kernel here loads
-// its mode's verdicts and codes, runs it, and stores its mode's outputs.
+// What bounds it on the H100: integer work. chip_smoke.py bounds each
+// mode by the integer operations a node that this kernel issues
+// (counted on its SASS), capped by the work recorded for the
+// one-thread-per-node kernel this replaced, over the int32 rate; the
+// bytes, 0.6 KB (pre) to 1.2 KB (replay) a node, take less. Its times
+// against that bound and against the kernel it replaced, and the block
+// size chosen among 32, 64 and 128 threads, are in PERF.md, section 6
+// (an NVIDIA H100 80GB HBM3 at 700 W). What holds it back is the fold
+// body's dependent chain (csrc/deep_fold.cuh).
 
 #include "deep_fold.cuh"
 
@@ -41,7 +40,10 @@ namespace {
 
 using namespace dfold;
 
-constexpr int BLOCK = 128;
+constexpr int BLOCK = 64;
+// the block's S-indexed tables
+constexpr int SMEM_BYTES = N_TABLES * S * BLOCK * (int)sizeof(int);
+static_assert(SMEM_BYTES <= 227 * 1024, "tables exceed a block's shared memory");
 
 enum Mode { PRE = 0, FLAGS = 1, REPLAY = 2 };
 
@@ -69,22 +71,36 @@ struct FoldArgs {
 
 template <int MODE>
 __global__ void __launch_bounds__(BLOCK) deep_fold_kernel(FoldArgs a) {
+  extern __shared__ int smem[];
   const int node = blockIdx.x * BLOCK + threadIdx.x;
   const int n = a.n;
   if (node >= n) return;
 
-  const FoldIn in = {{a.ca, n, 1},   {a.cv, n, 1},   {a.cs, n, 1},
-                     {a.dms, n, 1},  {a.dmc, n, 1},  {a.dmo, n, 1},
-                     {a.dmm, n, 1},  {a.woa, n, 1},  {a.wval, n, 1},
-                     {a.wlive, n, 1}, a.hor};
-  int bad[Q], ocode[S];
+  // a thread reads and writes only its own column of the tables
+  const Tables<BLOCK> t = Tables<BLOCK>::of(smem, threadIdx.x);
+  // all of the node's entries loaded before the first store, so that
+  // the loads overlap
+  int dir[S][5];
 #pragma unroll
-  for (int q = 0; q < Q; ++q) bad[q] = MODE == REPLAY ? a.bad[q * n + node] : 0;
+  for (int s = 0; s < S; ++s) {
+    dir[s][0] = ld(a.dms + s * n + node);
+    dir[s][1] = ld(a.dmc + s * n + node);
+    dir[s][2] = ld(a.dmo + s * n + node);
+    dir[s][3] = ld(a.dmm + s * n + node);
+    dir[s][4] = MODE != PRE ? ld(a.ocode + s * n + node) : 0;
+  }
 #pragma unroll
-  for (int s = 0; s < S; ++s)
-    ocode[s] = MODE == PRE ? 0 : a.ocode[s * n + node];
+  for (int s = 0; s < S; ++s) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) t.put(T_DMS + c, s, dir[s][c]);
+    if (MODE != PRE) t.put(T_OCODE, s, dir[s][4]);
+  }
+  int bad[Q];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) bad[q] = MODE == REPLAY ? ld(a.bad + q * n + node) : 0;
+  const FoldIn in = {a.ca, a.cv, a.cs, a.woa, a.wval, a.wlive, a.hor, n};
   FoldOut o;
-  fold_node(in, node, bad, ocode, o);
+  fold_node<BLOCK, MODE != PRE>(in, node, bad, t, o);
 
   const auto flag = [&](int s) {
     return (int)((o.mark >> s) & 1u) * F_MARK +
@@ -115,13 +131,13 @@ __global__ void __launch_bounds__(BLOCK) deep_fold_kernel(FoldArgs a) {
     }
 #pragma unroll
     for (int s = 0; s < S; ++s) {
-      a.out1[s * n + node] = o.dms[s];
-      a.out1[(S + s) * n + node] = o.dmc[s];
-      a.out1[(2 * S + s) * n + node] = o.dmo[s];
-      a.out1[(3 * S + s) * n + node] = o.dmm[s];
-      a.out1[(4 * S + s) * n + node] = o.dmm_src[s];
+      a.out1[s * n + node] = t.get(T_DMS, s);
+      a.out1[(S + s) * n + node] = t.get(T_DMC, s);
+      a.out1[(2 * S + s) * n + node] = t.get(T_DMO, s);
+      a.out1[(3 * S + s) * n + node] = t.get(T_DMM, s);
+      a.out1[(4 * S + s) * n + node] = t.get(T_DMM_SRC, s);
       a.out1[(5 * S + s) * n + node] = (int)((o.touched >> s) & 1u);
-      a.out1[(6 * S + s) * n + node] = o.act_acc[s];
+      a.out1[(6 * S + s) * n + node] = t.get(T_ACT, s);
     }
 #pragma unroll
     for (int q = 0; q < Q; ++q) {
@@ -148,9 +164,15 @@ __global__ void __launch_bounds__(BLOCK) deep_fold_kernel(FoldArgs a) {
 template <int MODE>
 int launch(const FoldArgs& a, void* stream) {
   if (a.n > 0) {
+    if (SMEM_BYTES > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          deep_fold_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          SMEM_BYTES);
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
     const int grid = (a.n + BLOCK - 1) / BLOCK;
-    deep_fold_kernel<MODE>
-        <<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(a);
+    deep_fold_kernel<MODE><<<grid, BLOCK, SMEM_BYTES,
+                             static_cast<cudaStream_t>(stream)>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -172,6 +194,12 @@ FoldArgs inputs(const int* ca, const int* cv, const int* cs,
 // Plain C entry points (bound with ctypes). Each launches on `stream`
 // without synchronising and returns cudaGetLastError().
 extern "C" {
+
+// dynamic shared memory of a block of the kernels, in bytes
+int deep_fold_smem_bytes() { return SMEM_BYTES; }
+
+// window steps an iteration of the fold's W loop
+int deep_fold_window_unroll() { return W_UNROLL; }
 
 int deep_fold_pre(const int* ca, const int* cv, const int* cs,
                   const int* dms, const int* dmc, const int* dmo,

@@ -7,16 +7,38 @@
 // for a single node; ops/deep_fold.py is its plain version and the
 // parity reference. The three modes of the JAX package's Pallas folds
 // differ only in their inputs and in which outputs they keep: the
-// pre-pass passes zero verdicts and zero own-lane codes, the flag pass
+// pre-pass passes zero verdicts and no own-lane codes, the flag pass
 // zero verdicts, the replay both; the compiler drops what a caller does
 // not read.
 //
-// Register pressure: the fold carry is about 170 live int32 values per
-// node. C, S, Q, G, W, the block bits and the config branches (waves,
-// read storm) are compile-time constants (-D flags per config), every
-// per-line / per-entry / per-slot loop is fully unrolled, and dynamic
-// table indices are select chains, so the carry stays in registers;
-// boolean tables are bit masks. The W loop is not unrolled.
+// Design: one thread per node, its S-indexed tables in shared memory.
+// A step reads about ten entries of the node's own-directory tables at
+// data-dependent indices and writes about twelve. Held in registers (the
+// one-thread-per-node design this replaced), a read of a 16-entry table
+// was a chain of 15 dependent selects and a write 16 selects, most of
+// the fold's integer instructions. Here the tables dms, dmc, dmo, dmm,
+// dmm_src, act_acc and the own-lane codes live in shared memory laid out
+// [table][entry][thread of the block], so a read is one LDS and a write
+// one predicated STS, and the 32 nodes of a warp always hit 32 different
+// banks whatever entries they index. The C-, Q- and G-indexed tables (4,
+// 3 and 1 entries at the bench shapes) and the boolean tables (32-bit
+// masks) stay in registers, where their select chains are at most 3
+// deep. C, S, Q, G, W, the block bits and the config branches are
+// compile-time constants (-D flags per config). The W loop runs
+// W_UNROLL steps an iteration, loads the next step's window words while
+// a step runs, and ends once the fold has stopped (a stopped fold writes
+// nothing more).
+//
+// A lane-group design (a node on 16 lanes, tables spread one entry a
+// lane, table reads as shuffles) was measured against this one and kept
+// out: it issues 16 times the warp instructions and ran slower than the
+// kernel it was to replace (the times, on an NVIDIA H100 80GB HBM3 at
+// 700 W, are in PERF.md, section 6).
+//
+// What holds it back now: one warp per 32 nodes, so at N=4096 128 warps
+// for the H100's 528 warp schedulers, and each step a chain of a few
+// hundred dependent instructions (chip_smoke.py prints the count) whose
+// latency a lone warp cannot hide.
 
 #pragma once
 
@@ -39,6 +61,7 @@ constexpr int G = DF_G;           // owner-value slots
 constexpr int W = DF_W;           // window steps
 constexpr bool WAVES1 = DF_WAVES1 != 0;
 constexpr bool STORM = DF_STORM != 0;
+constexpr int W_UNROLL = 2;      // window steps an iteration of the W loop
 
 static_assert(S == (1 << BB), "S must be 1 << block_bits");
 static_assert(C <= 32 && S <= 32 && Q <= 32, "bool tables are 32-bit masks");
@@ -52,32 +75,50 @@ constexpr int OC_FRESH = 1, OC_EV = 2, OC_BEATS = 4;     // own-lane codes
 constexpr int ACT_NONE = 0, ACT_DOWN = 1, ACT_KILL = 2, ACT_PROMOTE = 3;
 constexpr int F_MARK = 1, F_POISON = 2;
 
-// A strided int32 plane: element (row r, node i) at p[r * rs + i * ns].
-// The fold kernels pass [rows, n] planes (rs = n, ns = 1); the round
-// kernel reads the own-directory columns straight out of the [E, 7]
-// directory (rs = 7, ns = 7 * S).
-struct Plane {
-  const int* p;
-  int rs;
-  int ns;
-  __device__ __forceinline__ int operator()(int r, int i) const {
-    return p[r * rs + i * ns];
+// The S-indexed tables in shared memory: entry s of table t of the node
+// on thread `ln` of an NT-thread block is smem[(t * S + s) * NT + ln].
+constexpr int T_DMS = 0, T_DMC = 1, T_DMO = 2, T_DMM = 3, T_DMM_SRC = 4,
+              T_ACT = 5, T_OCODE = 6, N_TABLES = 7;
+
+template <int NT>
+struct Tables {
+  int* p;  // smem + ln
+
+  __device__ __forceinline__ static Tables of(int* smem, int ln) {
+    return Tables{smem + ln};
+  }
+  __device__ __forceinline__ int get(int t, int s) const {
+    return p[(t * S + s) * NT];
+  }
+  __device__ __forceinline__ void put(int t, int s, int v) const {
+    p[(t * S + s) * NT] = v;
+  }
+  // entry s of table t = v where m (deep_fold._upd); s is in [0, S)
+  __device__ __forceinline__ void upd(int t, int s, bool m, int v) const {
+    if (m) put(t, s, v);
   }
 };
 
+// read-only input words (never written while a kernel runs)
+__device__ __forceinline__ int ld(const int* p) { return __ldg(p); }
+
+// The fold's inputs: int32 [rows, n] planes, row r of node i at r * n + i.
 struct FoldIn {
-  Plane ca, cv, cs;            // [C] cache lines
-  Plane dms, dmc, dmo, dmm;    // [S] own-directory state/count/owner/memory
-  Plane woa, wval, wlive;      // [W] window: op << 28 | addr, value, live
-  const int* hor;              // [n] attempt horizon
+  const int* ca;      // [C] cache lines: address, value, state
+  const int* cv;
+  const int* cs;
+  const int* woa;     // [W] window: op << 28 | addr, value, live
+  const int* wval;
+  const int* wlive;
+  const int* hor;     // [1] attempt horizon
+  int n;
 };
 
-// The final fold carry (the union of the three modes' outputs).
+// The final fold carry (the union of the three modes' outputs) but the
+// S-indexed tables, which stay in the caller's Tables.
 struct FoldOut {
   int ca[C], cv[C], cs[C], cv_src[C], cv_req[C], cv_req_src[C];
-  uint32_t lwh;
-  int dms[S], dmc[S], dmo[S], dmm[S], dmm_src[S], act_acc[S];
-  uint32_t touched, mark, poison;
+  uint32_t lwh, touched, mark, poison;
   int kind[Q], ent[Q], sval[Q], relv[Q];
   uint32_t comm, rel, reld;
   int g_owner[G], g_ci[G];
@@ -101,9 +142,13 @@ __device__ __forceinline__ void upd(int (&a)[L], int idx, bool m, int v) {
   for (int i = 0; i < L; ++i) a[i] = (m && idx == i) ? v : a[i];
 }
 
-template <int L>
-__device__ __forceinline__ bool bsel(uint32_t w, int idx) {
-  return (idx > 0 && idx < L) ? ((w >> idx) & 1u) != 0 : (w & 1u) != 0;
+// bit i of w, and w with bit i set where m, for an i known to be in
+// range (ci in [0, C), block and v_block in [0, S))
+__device__ __forceinline__ bool bit_at(uint32_t w, int i) {
+  return ((w >> i) & 1u) != 0;
+}
+__device__ __forceinline__ uint32_t set_at(uint32_t w, int i, bool m) {
+  return w | ((uint32_t)m << i);
 }
 
 template <int L>
@@ -116,12 +161,15 @@ __device__ __forceinline__ uint32_t bupd(uint32_t w, int idx, bool m,
   return w;
 }
 
-// The fold of `node`'s window with slot verdicts `bad_in` and own-lane
-// codes `ocode_in` (zeros disable truncation), into `o`.
+// The fold of `node`'s window with slot verdicts `bad_in` and, when
+// OCODE, the own-lane codes in table T_OCODE (else none: no truncation
+// by them), into `o` and the tables `t`. On entry t holds the node's
+// own directory in T_DMS..T_DMM; the fold owns T_DMM_SRC and T_ACT.
+template <int NT, bool OCODE>
 __device__ __forceinline__ void fold_node(const FoldIn& a, int node,
                                           const int (&bad_in)[Q],
-                                          const int (&ocode_in)[S],
-                                          FoldOut& o) {
+                                          const Tables<NT> t, FoldOut& o) {
+  const int n = a.n;
   int (&ca)[C] = o.ca;
   int (&cv)[C] = o.cv;
   int (&cs)[C] = o.cs;
@@ -131,31 +179,19 @@ __device__ __forceinline__ void fold_node(const FoldIn& a, int node,
   uint32_t rrf = 0, wf = 0, lwh = 0;
 #pragma unroll
   for (int i = 0; i < C; ++i) {
-    ca[i] = a.ca(i, node);
-    cv[i] = a.cv(i, node);
-    cs[i] = a.cs(i, node);
+    ca[i] = ld(a.ca + i * n + node);
+    cv[i] = ld(a.cv + i * n + node);
+    cs[i] = ld(a.cs + i * n + node);
     cv_src[i] = -1;
     cv_req[i] = cv[i];
     cv_req_src[i] = -1;
   }
-  int (&dms)[S] = o.dms;
-  int (&dmc)[S] = o.dmc;
-  int (&dmo)[S] = o.dmo;
-  int (&dmm)[S] = o.dmm;
-  int (&dmm_src)[S] = o.dmm_src;
-  int (&act_acc)[S] = o.act_acc;
-  int ocode[S];
-  uint32_t touched = 0, mark = 0, poison = 0;
 #pragma unroll
   for (int s = 0; s < S; ++s) {
-    dms[s] = a.dms(s, node);
-    dmc[s] = a.dmc(s, node);
-    dmo[s] = a.dmo(s, node);
-    dmm[s] = a.dmm(s, node);
-    dmm_src[s] = -1;
-    act_acc[s] = 0;
-    ocode[s] = ocode_in[s];
+    t.put(T_DMM_SRC, s, -1);
+    t.put(T_ACT, s, 0);
   }
+  uint32_t touched = 0, mark = 0, poison = 0;
   int bad[Q];
   int (&kind)[Q] = o.kind;
   int (&ent)[Q] = o.ent;
@@ -180,13 +216,23 @@ __device__ __forceinline__ void fold_node(const FoldIn& a, int node,
   bool stopped = false, frozen = false, truncated = false, seen_req = false;
   int n_slot = 0, n_g = 0;
   int n_ret = 0, rh = 0, wh = 0, c_rd = 0, c_wr = 0, c_up = 0, c_ev = 0;
-  const int hor = a.hor[node];
+  const int hor = ld(a.hor + node);
+  int oa_next = ld(a.woa + node), val_next = ld(a.wval + node),
+      live_next = ld(a.wlive + node);
 
-#pragma unroll 1
+#pragma unroll (W_UNROLL)
   for (int k = 0; k < W; ++k) {
-    const int oa = a.woa(k, node);
-    const int val = a.wval(k, node);
-    const bool live = (a.wlive(k, node) != 0) && (k < hor);
+    // a stopped fold changes nothing more: every write below is gated
+    // by act, which needs !stopped
+    if (stopped) break;
+    const int oa = oa_next;
+    const int val = val_next;
+    const bool live = (live_next != 0) && (k < hor);
+    if (k + 1 < W) {
+      oa_next = ld(a.woa + (k + 1) * n + node);
+      val_next = ld(a.wval + (k + 1) * n + node);
+      live_next = ld(a.wlive + (k + 1) * n + node);
+    }
     // cache values as of the node's first fill-request attempt
     if (!seen_req) {
 #pragma unroll
@@ -204,8 +250,8 @@ __device__ __forceinline__ void fold_node(const FoldIn& a, int node,
     const int l_val = sel(cv, ci);
     const int l_state = sel(cs, ci);
     const int l_src = sel(cv_src, ci);
-    const bool l_rrf = bsel<C>(rrf, ci);
-    const bool l_wf = bsel<C>(wf, ci);
+    const bool l_rrf = bit_at(rrf, ci);
+    const bool l_wf = bit_at(wf, ci);
     const bool tag_ok = (l_addr == addr) && (l_state != INV);
     const bool is_rd = op == OP_READ, is_wr = op == OP_WRITE;
     const bool rd_hit = live && is_rd && tag_ok;
@@ -231,15 +277,17 @@ __device__ __forceinline__ void fold_node(const FoldIn& a, int node,
     const bool rem_vic = has_victim && !v_own;
     const bool probe = hit && frozen && !is_own && !l_wf;
 
-    // own register reads
-    const int t_dms = sel(dms, block);
-    const int t_dmc = sel(dmc, block);
-    const int t_dmo = sel(dmo, block);
-    const int t_dmm = sel(dmm, block);
-    const int t_dmm_src = sel(dmm_src, block);
-    const int t_act = sel(act_acc, block);
-    const int v_dmc = sel(dmc, v_block);
-    const int v_act = sel(act_acc, v_block);
+    // own table reads: block and v_block are in [0, S)
+    const int t_dms = t.get(T_DMS, block);
+    const int t_dmc = t.get(T_DMC, block);
+    const int t_dmo = t.get(T_DMO, block);
+    const int t_dmm = t.get(T_DMM, block);
+    const int t_dmm_src = t.get(T_DMM_SRC, block);
+    const int t_act = t.get(T_ACT, block);
+    const int v_dmc = t.get(T_DMC, v_block);
+    const int v_act = t.get(T_ACT, v_block);
+    const int tc = OCODE ? t.get(T_OCODE, block) : 0;
+    const int vc = OCODE ? t.get(T_OCODE, v_block) : 0;
 
     // stop conditions
     uint32_t rel_hit = 0;
@@ -275,15 +323,14 @@ __device__ __forceinline__ void fold_node(const FoldIn& a, int node,
         (!stopped && !live);
     const bool act = !stopped && !stop_now && (hit || is_txn);
 
-    // truncation (replay verdicts, own-lane yields)
+    // truncation (replay verdicts, own-lane yields); o1 and o2 may be
+    // >= Q, where sel reads entry 0 and upd/bupd write nothing
     const int o1 = n_slot;
     const int o2 = o1 + (int)vic_slot;
     const int bad1 = sel(bad, o1);
     const int bad2 = sel(bad, o2);
     const bool slot_bad = (vic_slot && act && bad1 != 0) ||
                           ((rem_txn || probe) && act && bad2 != 0);
-    const int tc = sel(ocode, block);
-    const int vc = sel(ocode, v_block);
     const bool post = seen_req;
     bool y_bad =
         own_txn && (((tc & OC_EV) && (tc & OC_BEATS)) ||
@@ -327,7 +374,7 @@ __device__ __forceinline__ void fold_node(const FoldIn& a, int node,
     const bool seen_old = seen_req;
     seen_req = seen_req || rem_txn_a;
 
-    // g-slot (own-EM owner value)
+    // g-slot (own-EM owner value); n_g may be >= G (upd drops it)
     upd(g_owner, n_g, g_take, t_dmo > 0 ? t_dmo : 0);
     upd(g_ci, n_g, g_take, ci);
     const int g_id = n_g;
@@ -342,30 +389,29 @@ __device__ __forceinline__ void fold_node(const FoldIn& a, int node,
     c_up += (int)(upg && r);
     c_ev += (int)(has_victim && r);
 
-    // hit write effects
+    // hit write effects (with the fills below: a hit write and a fill
+    // never meet in one step, so each line table takes one write)
     const bool wm = wr_hit && r;
-    upd(cv, ci, wm, val);
-    upd(cv_src, ci, wm, -1);
-    upd(cs, ci, wm, MOD);
 
-    // own victim composition
+    // own victim composition (vo and to are never both set: an own
+    // victim and an own target of one step are different entries)
     const bool vo = own_vic && r;
     const bool ev_m = vo && v_mod;
     const bool ev_s = vo && !v_mod && (l_state == SHD);
     const int nvc = ev_s ? v_dmc - 1 : 0;
     const int nvs = (ev_s && nvc >= 2) ? D_S : ((ev_s && nvc == 1) ? D_EM : D_U);
     const bool promote = ev_s && (nvc == 1);
-    upd(dms, v_block, vo, nvs);
-    upd(dmc, v_block, vo, nvc);
-    upd(dmo, v_block, vo && promote, -1);
-    upd(dmm, v_block, ev_m, l_val);
-    upd(dmm_src, v_block, ev_m, l_src);
-    touched = bupd<S>(touched, v_block, vo, true);
+    t.upd(T_DMS, v_block, vo, nvs);
+    t.upd(T_DMC, v_block, vo, nvc);
+    t.upd(T_DMO, v_block, vo && promote, -1);
+    t.upd(T_DMM, v_block, ev_m, l_val);
+    t.upd(T_DMM_SRC, v_block, ev_m, l_src);
+    touched = set_at(touched, v_block, vo);
     const int v_new = promote ? ACT_PROMOTE : ACT_NONE;
-    upd(act_acc, v_block, vo, v_act > v_new ? v_act : v_new);
+    t.upd(T_ACT, v_block, vo, v_act > v_new ? v_act : v_new);
     const bool v_foreign = ev_s && (v_dmc > 1);
-    mark = bupd<S>(mark, v_block, vo && v_foreign, true);
-    poison = bupd<S>(poison, v_block, vo && seen_old, true);
+    mark = set_at(mark, v_block, vo && v_foreign);
+    poison = set_at(poison, v_block, vo && seen_old);
 
     // own target composition
     const bool to = own_txn && r;
@@ -384,30 +430,30 @@ __device__ __forceinline__ void fold_node(const FoldIn& a, int node,
                             : ((o_rd && t_em) ? ACT_DOWN : ACT_NONE);
     // touching a pending entry overrides the accumulated PROMOTE
     const bool act_override = to && t_em_p;
-    upd(dms, block, to, nts);
-    upd(dmc, block, to, ntc);
-    upd(dmo, block, to, nto);
-    upd(dmm_src, block, to, ntm_src);
-    touched = bupd<S>(touched, block, to, true);
-    upd(act_acc, block, to,
-        act_override ? new_act : (t_act > new_act ? t_act : new_act));
+    t.upd(T_DMS, block, to, nts);
+    t.upd(T_DMC, block, to, ntc);
+    t.upd(T_DMO, block, to, nto);
+    t.upd(T_DMM_SRC, block, to, ntm_src);
+    touched = set_at(touched, block, to);
+    t.upd(T_ACT, block, to,
+          act_override ? new_act : (t_act > new_act ? t_act : new_act));
     const bool t_foreign = (t_s && t_dmc > (upg ? 1 : 0)) || t_em;
-    mark = bupd<S>(mark, block, to && t_foreign, true);
-    poison = bupd<S>(poison, block, to && seen_old, true);
+    mark = set_at(mark, block, to && t_foreign);
+    poison = set_at(poison, block, to && seen_old);
 
     // fills
     const int fstate = is_wr ? MOD : ((own_txn && t_u_eff) ? EXC : SHD);
     const int f_val = is_wr ? val : (t_em_o ? 0 : t_dmm);
     const int f_src = (is_wr || !is_own) ? -1 : (t_em_o ? g_id : t_dmm_src);
     upd(ca, ci, fill_r, addr);
-    upd(cv, ci, fill_r, f_val);
-    upd(cv_src, ci, fill_r, f_src);
-    upd(cs, ci, fill_r, fstate);
-    rrf = bupd<C>(rrf, ci, fill_r, rem_txn && rd_miss);
-    wf = bupd<C>(wf, ci, fill_r, true);
+    upd(cv, ci, fill_r || wm, fill_r ? f_val : val);
+    upd(cv_src, ci, fill_r || wm, fill_r ? f_src : -1);
+    upd(cs, ci, fill_r || wm, fill_r ? fstate : MOD);
+    const uint32_t line = 1u << ci;
+    if (fill_r) rrf = (rem_txn && rd_miss) ? (rrf | line) : (rrf & ~line);
+    wf = set_at(wf, ci, fill_r);
     // write-hit-after-last-fill: set on hit writes, cleared by fills
-    lwh = bupd<C>(lwh, ci, wm, true);
-    lwh = bupd<C>(lwh, ci, fill_r, false);
+    if (fill_r || wm) lwh = wm ? (lwh | line) : (lwh & ~line);
 
     frozen = frozen || (is_txn && !stopped && !stop_now);
     stopped = stopped || stop_now;

@@ -23,9 +23,18 @@
 //   the 50 MB L2), one thread runs one node at a time, and the phases
 //   of the round are separated by grid-wide barriers
 //   (cooperative_groups::this_grid().sync(); the launch is cooperative,
-//   so every block is resident). A node's values live in registers only
-//   within a phase; what a later phase needs goes to scratch in device
-//   memory (`scratch`, allocated by the wrapper).
+//   so every block is resident). What a later phase needs goes to
+//   scratch in device memory (`scratch`, allocated by the wrapper).
+//
+// Shared memory: the three folds run the fold body of csrc/deep_fold.cuh
+// with the node's S-indexed tables in the block's shared memory. Before
+// each fold the block copies its nodes' span of the [E, 7] directory
+// (one contiguous run of 64 x S rows) into shared memory with coalesced
+// 16-byte loads, and with it the claim words of its own entries, which
+// become the own-lane codes; each thread then moves its node's rows
+// into its table column. The flags words and the replay's merged rows
+// go back out the same way, coalesced. 62,720 B of dynamic shared
+// memory a 64-thread block at S = 16 (S = 32 takes 124,160 B).
 // - The read storm. The TPU kernel refuses deep_read_storm (duplicate
 //   storm rows break its routed scatter); this one does not take it
 //   either, and storm configs run the fold path, as in JAX.
@@ -56,17 +65,20 @@
 // kernel is deterministic and bit-identical to the plain round.
 //
 // What bounds it on the H100: at deep@4096 the launch moves 5.08 MB
-// (io_contract_bytes: inputs read once, outputs written once; about
-// 1.5 us at 3.35 TB/s; the scratch, about 2 MB, stays in L2) and runs
-// the three folds (about 40k integer instructions a node, most in the
-// select chains of the table reads and writes) plus the middle, about
-// 10 us of the int32 lanes at N=4096: integer work bounds it. What holds
-// it back is what holds the fold kernels back: one thread per node gives
-// 32 blocks at N=4096 (100 of the 132 SMs empty), each thread runs a long
-// dependent chain, and every phase waits at a barrier for its slowest
-// node. The grid is sized to the nodes
-// (one node a thread while they fit the resident blocks) so that the
-// barriers are cheap; larger machines loop over their nodes.
+// (io_contract_bytes: inputs read once, outputs written once; the
+// scratch, about 2 MB, stays in L2), and its integer work takes longer:
+// chip_smoke.py bounds it by the integer operations a node that this
+// kernel issues (counted on its SASS), capped by the work recorded for
+// the one-thread-per-node round it replaced, over the int32 rate. The
+// three folds take more than half of its time; the rest is the copies,
+// the gathers of the middle phases and the six grid barriers, each of
+// which waits for the slowest block. The grid is sized to the nodes (64
+// blocks of 64 threads at N=4096, one node a thread while they fit the
+// resident blocks) so that the barriers are cheap; larger machines loop
+// over their nodes. The times and the block size chosen among 32, 64
+// and 128 threads are in PERF.md, section 6 (an NVIDIA H100 80GB HBM3
+// at 700 W). What holds it back now is the fold body's dependent chain,
+// one warp per 32 nodes (csrc/deep_fold.cuh).
 //
 // Semantics kept from JAX's int32: shifts of signed values whose JAX
 // result wraps (round << 11, the key layout) go through uint32_t; the
@@ -101,10 +113,30 @@ constexpr int bit_length(int v) { return v <= 0 ? 0 : 1 + bit_length(v >> 1); }
 // lane-key slot bits (sync_engine.slot_bits)
 constexpr int SB = WAVES == 1 ? 0 : (bit_length(Q - 1) > 1 ? bit_length(Q - 1) : 1);
 
-constexpr int BLOCK = 128;
+constexpr int BLOCK = 64;
 constexpr int DM_STATE = 0, DM_COUNT = 1, DM_OWNER = 2, DM_MEM = 3,
               DM_ACT = 4, DM_REQ = 5, DM_CLAIM = 6, DM_COLS = 7;
 constexpr int I32_MAX = 0x7FFFFFFF;
+
+// Shared memory of a block (int32 words): the S-indexed fold tables
+// (deep_fold.cuh), the block's own directory rows [BLOCK][ROW] as a
+// node-major copy of its span of the [E, 7] directory, the own-lane
+// codes [BLOCK][S + 1], and per-thread words [SW_WORDS][BLOCK]. ROW and
+// S + 1 are odd, so a thread's rows start in distinct banks: a warp's
+// cooperative copies (consecutive words) and its per-thread accesses
+// (one word of 32 nodes) are both free of bank conflicts.
+constexpr int ROW = S * DM_COLS + 1;
+constexpr int CROW = S + 1;
+constexpr int SW_PRIO = 0, SW_MARK = 1, SW_POIS = 2, SW_WORDS = 3;
+constexpr int SM_TABLES = 0;
+constexpr int SM_ROWS = SM_TABLES + N_TABLES * S * BLOCK;
+constexpr int SM_CODES = SM_ROWS + BLOCK * ROW;
+constexpr int SM_WORDS = SM_CODES + BLOCK * CROW;
+constexpr int SMEM_BYTES = (SM_WORDS + SW_WORDS * BLOCK) * (int)sizeof(int);
+static_assert(SMEM_BYTES <= 227 * 1024, "the block's shared memory is over 227 KB");
+
+// word j of the block's span of the directory, in its copy `rows`
+__device__ __forceinline__ int row_at(int j) { return j + j / (S * DM_COLS); }
 
 // Per-node scratch: an int32 [R_ROWS, n] plane, row r of node i at
 // r * n + i. Masks hold one bit per slot (Q) or per line (C).
@@ -204,18 +236,7 @@ __device__ __forceinline__ Keys make_keys(const RoundArgs& a) {
 }
 
 __device__ __forceinline__ FoldIn fold_in(const RoundArgs& a) {
-  const int n = a.n;
-  const FoldIn in = {{a.ca, n, 1},
-                     {a.cv, n, 1},
-                     {a.cs, n, 1},
-                     {a.dm + DM_STATE, DM_COLS, DM_COLS * S},
-                     {a.dm + DM_COUNT, DM_COLS, DM_COLS * S},
-                     {a.dm + DM_OWNER, DM_COLS, DM_COLS * S},
-                     {a.dm + DM_MEM, DM_COLS, DM_COLS * S},
-                     {a.woa, n, 1},
-                     {a.wval, n, 1},
-                     {a.wlive, n, 1},
-                     a.hor};
+  const FoldIn in = {a.ca, a.cv, a.cs, a.woa, a.wval, a.wlive, a.hor, a.n};
   return in;
 }
 
@@ -232,29 +253,137 @@ __device__ __forceinline__ bool bit(int mask, int i) {
   return ((mask >> i) & 1) != 0;
 }
 
-// dense own-lane codes: any fresh key on an own entry is foreign
-__device__ __forceinline__ void own_codes(const Keys& k, int node,
-                                          const int* claim, int (&oc)[S]) {
-  const int prio_self = k.prio(node);
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-    const int lane = claim[node * S + s];
-    const bool fresh = lane < k.thresh;
-    const bool ev = (lane & 1) == 1;
-    const bool beats = ((lane >> (1 + SB)) & k.pmask) < prio_self;
-    oc[s] = (fresh ? OC_FRESH : 0) | (fresh && ev ? OC_EV : 0) |
-            (fresh && beats ? OC_BEATS : 0);
-  }
+// a dense own-lane code: any fresh key on an own entry is foreign
+__device__ __forceinline__ int own_code(const Keys& k, int lane,
+                                        int prio_self) {
+  const bool fresh = lane < k.thresh;
+  const bool ev = (lane & 1) == 1;
+  const bool beats = ((lane >> (1 + SB)) & k.pmask) < prio_self;
+  return (fresh ? OC_FRESH : 0) | (fresh && ev ? OC_EV : 0) |
+         (fresh && beats ? OC_BEATS : 0);
 }
 
-// P1: pre-pass fold, lane keys, claim scatter-min
+// The block's nodes are [base, base + BLOCK) (those below n are on);
+// thread ln runs node base + ln in every phase. Block-wide helpers are
+// called by every thread of the block.
+
+// The fold tables of the block's nodes: their own directory rows (and,
+// with OCODE, their own-lane codes from the claim words) copied in with
+// coalesced loads, then moved by each thread into its table column.
+template <bool OCODE>
+__device__ __forceinline__ Tables<BLOCK> stage(const RoundArgs& a,
+                                               const Keys& k, int base,
+                                               int* smem, const int* claim) {
+  const int ln = threadIdx.x, node = base + ln, n = a.n;
+  const int nloc = n - base < BLOCK ? n - base : BLOCK;
+  int* rows = smem + SM_ROWS;
+  int* codes = smem + SM_CODES;
+  int* words = smem + SM_WORDS;
+  __syncthreads();  // the previous node group is done with shared memory
+  if (OCODE && node < n) words[SW_PRIO * BLOCK + ln] = k.prio(node);
+  // Every copy below loads a batch of words into registers before it
+  // stores any: the compiler keeps a load after a store that it cannot
+  // tell apart from it, which would make each load wait for the last.
+  const int* span = a.dm + (size_t)base * S * DM_COLS;
+  const int total = nloc * S * DM_COLS;
+  // 16-byte loads where the span is aligned (it starts at a multiple of
+  // BLOCK rows), words for the rest
+  const int nvec = ((uintptr_t)span & 15) == 0 ? total / 4 : 0;
+  constexpr int VB = 8;   // 16-byte loads in flight a thread
+  for (int v0 = ln; v0 < nvec; v0 += VB * BLOCK) {
+    int4 w[VB];
+#pragma unroll
+    for (int u = 0; u < VB; ++u)
+      if (v0 + u * BLOCK < nvec)
+        w[u] = __ldg(reinterpret_cast<const int4*>(span) + v0 + u * BLOCK);
+#pragma unroll
+    for (int u = 0; u < VB; ++u) {
+      const int j = 4 * (v0 + u * BLOCK);
+      if (v0 + u * BLOCK < nvec) {
+        rows[row_at(j)] = w[u].x;
+        rows[row_at(j + 1)] = w[u].y;
+        rows[row_at(j + 2)] = w[u].z;
+        rows[row_at(j + 3)] = w[u].w;
+      }
+    }
+  }
+  for (int j = 4 * nvec + ln; j < total; j += BLOCK) rows[row_at(j)] = ld(span + j);
+  if (OCODE) {
+    __syncthreads();
+    // the codes, and the claim words as the rows' DM_CLAIM column: a
+    // thread's words are j = ln + i * BLOCK, i < S
+    int lane[S];
+#pragma unroll
+    for (int i = 0; i < S; ++i)
+      if (ln + i * BLOCK < nloc * S)
+        lane[i] = claim[(size_t)base * S + ln + i * BLOCK];
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+      const int j = ln + i * BLOCK, owner = j / S;
+      if (j < nloc * S) {
+        codes[j + owner] =
+            own_code(k, lane[i], words[SW_PRIO * BLOCK + owner]);
+        rows[row_at(j * DM_COLS + DM_CLAIM)] = lane[i];
+      }
+    }
+  }
+  __syncthreads();
+  const Tables<BLOCK> t = Tables<BLOCK>::of(smem + SM_TABLES, ln);
+  if (node < n) {
+    int dir[S][4], oc[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c)   // DM_STATE..DM_MEM = T_DMS..T_DMM
+        dir[s][c] = rows[ln * ROW + s * DM_COLS + c];
+      if (OCODE) oc[s] = codes[ln * CROW + s];
+    }
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) t.put(T_DMS + c, s, dir[s][c]);
+      if (OCODE) t.put(T_OCODE, s, oc[s]);
+    }
+  }
+  return t;
+}
+
+// the flags words of the block's own entries, from each node's masks
+__device__ __forceinline__ void write_flags(int base, int n, int* smem,
+                                            uint32_t mark, uint32_t poison,
+                                            int* flags) {
+  const int ln = threadIdx.x;
+  const int nloc = n - base < BLOCK ? n - base : BLOCK;
+  int* words = smem + SM_WORDS;
+  words[SW_MARK * BLOCK + ln] = (int)mark;
+  words[SW_POIS * BLOCK + ln] = (int)poison;
+  __syncthreads();
+  // a thread's words are j = ln + i * BLOCK, i < S: all computed, then
+  // all stored
+  int f[S];
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+    const int j = ln + i * BLOCK, owner = j / S, s = j % S;
+    f[i] = j < nloc * S
+               ? ((words[SW_MARK * BLOCK + owner] >> s) & 1) * F_MARK +
+                     ((words[SW_POIS * BLOCK + owner] >> s) & 1) * F_POISON
+               : 0;
+  }
+#pragma unroll
+  for (int i = 0; i < S; ++i)
+    if (ln + i * BLOCK < nloc * S) flags[(size_t)base * S + ln + i * BLOCK] = f[i];
+}
+
+// P1: pre-pass fold, lane keys, claim scatter-min (block-wide)
 __device__ __forceinline__ void phase_pre(const RoundArgs& a, const Keys& k,
-                                          int node, int* sc, int* claim) {
-  const int n = a.n, E = n * S;
+                                          int base, int* smem, int* sc,
+                                          int* claim) {
+  const int n = a.n, E = n * S, node = base + threadIdx.x;
+  const Tables<BLOCK> t = stage<false>(a, k, base, smem, claim);
+  if (node >= n) return;
   const int bad[Q] = {};
-  const int oc[S] = {};
   FoldOut o;
-  fold_node(fold_in(a), node, bad, oc, o);
+  fold_node<BLOCK, false>(fold_in(a), node, bad, t, o);
   const int key = k.key(node);
 #pragma unroll
   for (int q = 0; q < Q; ++q) {
@@ -273,28 +402,31 @@ __device__ __forceinline__ void phase_pre(const RoundArgs& a, const Keys& k,
 }
 
 // P2: own-lane codes, the flag-pass fold, the flags word of own entries
+// (block-wide)
 __device__ __forceinline__ void phase_flags(const RoundArgs& a,
-                                            const Keys& k, int node, int* sc,
+                                            const Keys& k, int base,
+                                            int* smem, int* sc,
                                             const int* claim, int* flags) {
-  const int n = a.n;
-  uint32_t mark, poison;
+  const int n = a.n, node = base + threadIdx.x;
+  uint32_t mark = 0, poison = 0;
   if (EXACT) {
-    int oc[S];
-    own_codes(k, node, claim, oc);
-    const int bad[Q] = {};
-    FoldOut o;
-    fold_node(fold_in(a), node, bad, oc, o);
-    mark = o.mark;
-    poison = o.poison;
+    const Tables<BLOCK> t = stage<true>(a, k, base, smem, claim);
+    if (node < n) {
+      const int bad[Q] = {};
+      FoldOut o;
+      fold_node<BLOCK, true>(fold_in(a), node, bad, t, o);
+      mark = o.mark;
+      poison = o.poison;
+    }
   } else {
-    mark = (uint32_t)sc[R_PMARK * n + node];
-    poison = (uint32_t)sc[R_PPOIS * n + node];
+    __syncthreads();  // the previous node group is done with shared memory
+    if (node < n) {
+      mark = (uint32_t)sc[R_PMARK * n + node];
+      poison = (uint32_t)sc[R_PPOIS * n + node];
+    }
   }
-#pragma unroll
-  for (int s = 0; s < S; ++s)
-    flags[node * S + s] = (int)((mark >> s) & 1u) * F_MARK +
-                          (int)((poison >> s) & 1u) * F_POISON;
-  sc[R_CLEAN * n + node] = poison == 0;
+  write_flags(base, n, smem, mark, poison, flags);
+  if (node < n) sc[R_CLEAN * n + node] = poison == 0;
 }
 
 // P3, wave j: j == 0 gathers the claim and flags words (lane wins,
@@ -354,89 +486,113 @@ __device__ __forceinline__ void phase_wave(const RoundArgs& a, const Keys& k,
   }
 }
 
-// P3, after the last wave: slot verdicts, the replay fold, the node's
-// own directory rows into dm_out
+// P3, after the last wave: slot verdicts, the replay fold, the block's
+// own directory rows into dm_out (block-wide)
 __device__ __forceinline__ void phase_replay(const RoundArgs& a,
-                                             const Keys& k, int node,
-                                             int* sc, const int* claim,
+                                             const Keys& k, int base,
+                                             int* smem, int* sc,
+                                             const int* claim,
                                              const int* flags) {
-  const int n = a.n, E = n * S;
-  const int prio_self = k.prio(node);
-  const int reqab = sc[R_REQAB * n + node];
-  const int won0 = sc[R_WON * n + node];
-  int won_any = 0;
+  const int n = a.n, E = n * S, ln = threadIdx.x, node = base + ln;
+  const Tables<BLOCK> t = stage<true>(a, k, base, smem, claim);
+  int* rows = smem + SM_ROWS;
+  if (node < n) {
+    const int prio_self = k.prio(node);
+    const int reqab = sc[R_REQAB * n + node];
+    const int won0 = sc[R_WON * n + node];
+    int won_any = 0;
 #pragma unroll
-  for (int j = 0; j < WAVES; ++j) won_any |= sc[(R_WON + j) * n + node];
-  int bad[Q];
+    for (int j = 0; j < WAVES; ++j) won_any |= sc[(R_WON + j) * n + node];
+    int bad[Q];
 #pragma unroll
-  for (int q = 0; q < Q; ++q) {
-    const int kind = sc[(R_KIND + q) * n + node];
-    const int safe = clip(sc[(R_ENT + q) * n + node], 0, E - 1);
-    const int sval = sc[(R_SVAL + q) * n + node];
-    const int lane_got = claim[safe];
-    const int got_flags = flags[safe];
-    const bool lane_fresh = lane_got < k.thresh;
-    const bool lane_is_ev = (lane_got & 1) == 1;
-    const bool home_wins = k.prio(safe >> BB) < prio_self;
-    const bool ev_abort = is_ev(kind) && (got_flags & F_MARK) && home_wins;
-    const bool req_bad =
-        is_req(kind) && (!bit(won_any, q) || bit(reqab, q));
-    const bool ev_bad = is_ev(kind) && (!bit(won0, q) || ev_abort);
-    const bool probe_bad =
-        kind == K_PROBE &&
-        ((got_flags & F_MARK) || (sval != 0 && lane_fresh && !lane_is_ev));
-    bad[q] = (req_bad || ev_bad || probe_bad) ? 1 : 0;
-  }
-  int oc[S];
-  own_codes(k, node, claim, oc);
-  FoldOut o;
-  fold_node(fold_in(a), node, bad, oc, o);
+    for (int q = 0; q < Q; ++q) {
+      const int kind = sc[(R_KIND + q) * n + node];
+      const int safe = clip(sc[(R_ENT + q) * n + node], 0, E - 1);
+      const int sval = sc[(R_SVAL + q) * n + node];
+      const int lane_got = claim[safe];
+      const int got_flags = flags[safe];
+      const bool lane_fresh = lane_got < k.thresh;
+      const bool lane_is_ev = (lane_got & 1) == 1;
+      const bool home_wins = k.prio(safe >> BB) < prio_self;
+      const bool ev_abort = is_ev(kind) && (got_flags & F_MARK) && home_wins;
+      const bool req_bad =
+          is_req(kind) && (!bit(won_any, q) || bit(reqab, q));
+      const bool ev_bad = is_ev(kind) && (!bit(won0, q) || ev_abort);
+      const bool probe_bad =
+          kind == K_PROBE &&
+          ((got_flags & F_MARK) || (sval != 0 && lane_fresh && !lane_is_ev));
+      bad[q] = (req_bad || ev_bad || probe_bad) ? 1 : 0;
+    }
+    FoldOut o;
+    fold_node<BLOCK, true>(fold_in(a), node, bad, t, o);
 
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    sc[(R_CVREQ + c) * n + node] = o.cv_req[c];
-    sc[(R_CA + c) * n + node] = o.ca[c];
-    sc[(R_CS + c) * n + node] = o.cs[c];
-    sc[(R_CV + c) * n + node] = o.cv[c];
-    sc[(R_CVSRC + c) * n + node] = o.cv_src[c];
-    sc[(R_CVREQSRC + c) * n + node] = o.cv_req_src[c];
-  }
+    for (int c = 0; c < C; ++c) {
+      sc[(R_CVREQ + c) * n + node] = o.cv_req[c];
+      sc[(R_CA + c) * n + node] = o.ca[c];
+      sc[(R_CS + c) * n + node] = o.cs[c];
+      sc[(R_CV + c) * n + node] = o.cv[c];
+      sc[(R_CVSRC + c) * n + node] = o.cv_src[c];
+      sc[(R_CVREQSRC + c) * n + node] = o.cv_req_src[c];
+    }
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    sc[(R_GOWN + g) * n + node] = o.g_owner[g];
-    sc[(R_GCI + g) * n + node] = o.g_ci[g];
-  }
-  sc[R_LWH * n + node] = (int)o.lwh;
-  sc[R_COMM * n + node] = (int)o.comm;
-  sc[R_REL * n + node] = (int)o.rel;
+    for (int g = 0; g < G; ++g) {
+      sc[(R_GOWN + g) * n + node] = o.g_owner[g];
+      sc[(R_GCI + g) * n + node] = o.g_ci[g];
+    }
+    sc[R_LWH * n + node] = (int)o.lwh;
+    sc[R_COMM * n + node] = (int)o.comm;
+    sc[R_REL * n + node] = (int)o.rel;
 #pragma unroll
-  for (int q = 0; q < Q; ++q) sc[(R_RELV + q) * n + node] = o.relv[q];
-  const int cnt[7] = {o.n_ret, o.rh, o.wh, o.c_rd, o.c_wr, o.c_up, o.c_ev};
+    for (int q = 0; q < Q; ++q) sc[(R_RELV + q) * n + node] = o.relv[q];
+    const int cnt[7] = {o.n_ret, o.rh, o.wh, o.c_rd, o.c_wr, o.c_up, o.c_ev};
 #pragma unroll
-  for (int i = 0; i < 7; ++i) sc[(R_CNT + i) * n + node] = cnt[i];
+    for (int i = 0; i < 7; ++i) sc[(R_CNT + i) * n + node] = cnt[i];
 
-  // dense merge of own rows; DM_ACT packs (round << 11) | (act_h << 9) |
-  // (promo << 8) | (kw << 4) | dw, the own chain's stamps being 1
-  const uint32_t rtag = (uint32_t)k.round << 11;
+    // dense merge of own rows into the block's copy of them; DM_ACT
+    // packs (round << 11) | (act_h << 9) | (promo << 8) | (kw << 4) | dw,
+    // the own chain's stamps being 1
+    const uint32_t rtag = (uint32_t)k.round << 11;
 #pragma unroll
-  for (int s = 0; s < S; ++s) {
-    const int row = node * S + s;
-    const int* in = a.dm + row * DM_COLS;
-    int* out = a.dm_out + row * DM_COLS;
-    const bool t = ((o.touched >> s) & 1u) != 0;
-    const int acc = o.act_acc[s];
-    out[DM_STATE] = t ? o.dms[s] : in[DM_STATE];
-    out[DM_COUNT] = t ? o.dmc[s] : in[DM_COUNT];
-    out[DM_OWNER] = t ? o.dmo[s] : in[DM_OWNER];
-    out[DM_MEM] = t ? o.dmm[s] : in[DM_MEM];
-    out[DM_ACT] = t ? (int)(rtag | ((uint32_t)(acc == ACT_PROMOTE) << 8) |
+    for (int s = 0; s < S; ++s) {
+      const bool touched = ((o.touched >> s) & 1u) != 0;
+      sc[(R_DMMSRC + s) * n + node] = touched ? t.get(T_DMM_SRC, s) : -1;
+      if (touched) {
+        int* row = rows + ln * ROW + s * DM_COLS;
+        const int acc = t.get(T_ACT, s);
+        row[DM_STATE] = t.get(T_DMS, s);
+        row[DM_COUNT] = t.get(T_DMC, s);
+        row[DM_OWNER] = t.get(T_DMO, s);
+        row[DM_MEM] = t.get(T_DMM, s);
+        row[DM_ACT] = (int)(rtag | ((uint32_t)(acc == ACT_PROMOTE) << 8) |
                             ((uint32_t)(acc == ACT_KILL) << 4) |
-                            (uint32_t)(acc == ACT_DOWN))
-                    : in[DM_ACT];
-    out[DM_REQ] = t ? node : in[DM_REQ];
-    out[DM_CLAIM] = claim[row];
-    sc[(R_DMMSRC + s) * n + node] = t ? o.dmm_src[s] : -1;
+                            (uint32_t)(acc == ACT_DOWN));
+        row[DM_REQ] = node;
+      }
+    }
   }
+  // the block's rows out, coalesced (DM_CLAIM holds the claim words)
+  __syncthreads();
+  const int nloc = n - base < BLOCK ? n - base : BLOCK;
+  int* span = a.dm_out + (size_t)base * S * DM_COLS;
+  const int total = nloc * S * DM_COLS;
+  const int nvec = ((uintptr_t)span & 15) == 0 ? total / 4 : 0;
+  constexpr int VB = 8;   // as in stage: a batch of loads, then its stores
+  for (int v0 = ln; v0 < nvec; v0 += VB * BLOCK) {
+    int4 w[VB];
+#pragma unroll
+    for (int u = 0; u < VB; ++u) {
+      const int j = 4 * (v0 + u * BLOCK);
+      if (v0 + u * BLOCK < nvec)
+        w[u] = make_int4(rows[row_at(j)], rows[row_at(j + 1)],
+                         rows[row_at(j + 2)], rows[row_at(j + 3)]);
+    }
+#pragma unroll
+    for (int u = 0; u < VB; ++u)
+      if (v0 + u * BLOCK < nvec)
+        reinterpret_cast<int4*>(span)[v0 + u * BLOCK] = w[u];
+  }
+  for (int j = 4 * nvec + ln; j < total; j += BLOCK) span[j] = rows[row_at(j)];
 }
 
 // P4: owner-value slots from the other nodes' pre-merge cv_req
@@ -455,18 +611,25 @@ __device__ __forceinline__ void phase_merge(const RoundArgs& a, int node,
     for (int g = 0; g < G; ++g) v = src == g ? gv[g] : v;
     return v;
   };
+  // every load before the first store, so that they overlap
+  int src[S], cv[C], cv_src[C], cvreq[C], cvreq_src[C];
 #pragma unroll
-  for (int s = 0; s < S; ++s) {
-    const int src = sc[(R_DMMSRC + s) * n + node];
-    if (src >= 0 && src < G)
-      a.dm_out[(node * S + s) * DM_COLS + DM_MEM] = merged(0, src);
-  }
+  for (int s = 0; s < S; ++s) src[s] = sc[(R_DMMSRC + s) * n + node];
 #pragma unroll
   for (int c = 0; c < C; ++c) {
-    sc[(R_CVM + c) * n + node] = merged(sc[(R_CV + c) * n + node],
-                                        sc[(R_CVSRC + c) * n + node]);
-    sc[(R_CVREQM + c) * n + node] = merged(
-        sc[(R_CVREQ + c) * n + node], sc[(R_CVREQSRC + c) * n + node]);
+    cv[c] = sc[(R_CV + c) * n + node];
+    cv_src[c] = sc[(R_CVSRC + c) * n + node];
+    cvreq[c] = sc[(R_CVREQ + c) * n + node];
+    cvreq_src[c] = sc[(R_CVREQSRC + c) * n + node];
+  }
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+    if (src[s] >= 0 && src[s] < G)
+      a.dm_out[(node * S + s) * DM_COLS + DM_MEM] = merged(0, src[s]);
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    sc[(R_CVM + c) * n + node] = merged(cv[c], cv_src[c]);
+    sc[(R_CVREQM + c) * n + node] = merged(cvreq[c], cvreq_src[c]);
   }
 }
 
@@ -491,15 +654,25 @@ __device__ __forceinline__ void phase_compose(const RoundArgs& a,
     fille_acc = sc[R_FILLE * n + node];
   }
   const uint32_t rtag = (uint32_t)k.round << 11;
+  // the slots' scratch words, all loaded before the first row store
+  int kinds[Q], ents[Q], svals[Q], keys[Q], relvs[Q];
 #pragma unroll
   for (int q = 0; q < Q; ++q) {
-    const int kind = sc[(R_KIND + q) * n + node];
+    kinds[q] = sc[(R_KIND + q) * n + node];
+    ents[q] = sc[(R_ENT + q) * n + node];
+    svals[q] = sc[(R_SVAL + q) * n + node];
+    keys[q] = sc[(R_KEY + q) * n + node];
+    relvs[q] = sc[(R_RELV + q) * n + node];
+  }
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const int kind = kinds[q];
     const bool commit =
         (is_req(kind) || is_ev(kind)) && bit(won, q) && bit(comm, q);
     if (!commit) continue;
-    const int safe = clip(sc[(R_ENT + q) * n + node], 0, E - 1);
-    const int sval = sc[(R_SVAL + q) * n + node];
-    const int kq = sc[(R_KEY + q) * n + node];
+    const int safe = clip(ents[q], 0, E - 1);
+    const int sval = svals[q];
+    const int kq = keys[q];
     int* row = a.dm_out + safe * DM_COLS;
     const int r_state = row[DM_STATE], r_cnt = row[DM_COUNT],
               r_own = row[DM_OWNER], r_mem = row[DM_MEM],
@@ -527,7 +700,7 @@ __device__ __forceinline__ void phase_compose(const RoundArgs& a,
     // release: the requester displaced its own window fill of this entry
     // later in the window; the slot commits the fill+evict NET row
     const bool rel = bit(relm, q) && (k_rd || wlike);
-    const int relv = sc[(R_RELV + q) * n + node];
+    const int relv = relvs[q];
     const int evs_cnt = r_s ? r_cnt - 1 : r_cnt;
     int n_state =
         wlike ? D_EM
@@ -650,13 +823,25 @@ __device__ __forceinline__ void phase_finish(const RoundArgs& a,
       if (rci == c && aw > 0) awl[c] = aw;
     }
   }
-  // fan-out: the line's entry word, fresh when stamped this round
+  // fan-out: the line's entry word, fresh when stamped this round (the
+  // words of every line gathered before the first DM_OWNER store, which
+  // touches no DM_ACT or DM_REQ word)
+  int line_act[C], line_req[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int line_e = clip(ca[c], 0, E - 1);
+    line_act[c] = a.dm_out[line_e * DM_COLS + DM_ACT];
+    line_req[c] = a.dm_out[line_e * DM_COLS + DM_REQ];
+  }
+  const int* cnt = sc + R_CNT * n + node;   // n_ret rh wh rd wr up ev
+  const int d7[7] = {cnt[0], cnt[n], cnt[2 * n], cnt[3 * n], cnt[4 * n],
+                     cnt[5 * n], cnt[6 * n]};
   int kills = 0, promos = 0;
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     const int line_e = clip(ca[c], 0, E - 1);
-    const int act = a.dm_out[line_e * DM_COLS + DM_ACT];
-    const int req = a.dm_out[line_e * DM_COLS + DM_REQ];
+    const int act = line_act[c];
+    const int req = line_req[c];
     const bool fan_fresh = (act >> 11) == k.round;
     const int line_f =
         (fan_fresh ? ((act & 0x7FF) | 0x800) << 16 : 0) | (req & 0xFFFF);
@@ -687,15 +872,15 @@ __device__ __forceinline__ void phase_finish(const RoundArgs& a,
     a.cache_out[(C + c) * n + node] = cv[c];
     a.cache_out[(2 * C + c) * n + node] = cs[c];
   }
-  const int* cnt = sc + R_CNT * n + node;   // n_ret rh wh rd wr up ev
-  a.nret[node] = cnt[0];
-  const int d[10] = {cnt[0], cnt[n], cnt[2 * n], cnt[3 * n], cnt[4 * n],
-                     cnt[5 * n], conflicts, cnt[6 * n], kills, promos};
+  a.nret[node] = d7[0];
+  const int d[10] = {d7[0], d7[1], d7[2], d7[3], d7[4], d7[5], conflicts,
+                     d7[6], kills, promos};
 #pragma unroll
   for (int i = 0; i < 10; ++i) a.delta[i * n + node] = d[i];
 }
 
 __global__ void __launch_bounds__(BLOCK) deep_round_kernel(RoundArgs a) {
+  extern __shared__ int smem[];
   cg::grid_group grid = cg::this_grid();
   const int n = a.n, E = n * S;
   const int first = blockIdx.x * BLOCK + threadIdx.x;
@@ -706,17 +891,30 @@ __global__ void __launch_bounds__(BLOCK) deep_round_kernel(RoundArgs a) {
   int* lanes = flags + E;
   const Keys k = make_keys(a);
 
-  for (int e = first; e < E; e += stride) {
-    claim[e] = a.dm[e * DM_COLS + DM_CLAIM];
+  constexpr int EB = 16;   // claim words in flight a thread
+  for (int e0 = first; e0 < E; e0 += EB * stride) {
+    int w[EB];
 #pragma unroll
-    for (int j = 0; j < WAVES - 1; ++j) lanes[j * E + e] = I32_MAX;
+    for (int u = 0; u < EB; ++u)
+      if (e0 + u * stride < E) w[u] = ld(a.dm + (e0 + u * stride) * DM_COLS + DM_CLAIM);
+#pragma unroll
+    for (int u = 0; u < EB; ++u) {
+      const int e = e0 + u * stride;
+      if (e < E) {
+        claim[e] = w[u];
+#pragma unroll
+        for (int j = 0; j < WAVES - 1; ++j) lanes[j * E + e] = I32_MAX;
+      }
+    }
   }
+  // the block-wide phases walk the nodes a block at a time; thread ln of
+  // the block runs node base + ln, as `first` does in the per-node loops
   grid.sync();
-  for (int node = first; node < n; node += stride)
-    phase_pre(a, k, node, sc, claim);
+  for (int base = first - threadIdx.x; base < n; base += stride)
+    phase_pre(a, k, base, smem, sc, claim);
   grid.sync();
-  for (int node = first; node < n; node += stride)
-    phase_flags(a, k, node, sc, claim, flags);
+  for (int base = first - threadIdx.x; base < n; base += stride)
+    phase_flags(a, k, base, smem, sc, claim, flags);
   grid.sync();
   for (int node = first; node < n; node += stride)
     phase_wave<0>(a, k, node, sc, claim, flags, lanes);
@@ -732,8 +930,8 @@ __global__ void __launch_bounds__(BLOCK) deep_round_kernel(RoundArgs a) {
   DR_WAVE(13)
 #undef DR_WAVE
   // the same thread ran the node's last wave: no barrier needed
-  for (int node = first; node < n; node += stride)
-    phase_replay(a, k, node, sc, claim, flags);
+  for (int base = first - threadIdx.x; base < n; base += stride)
+    phase_replay(a, k, base, smem, sc, claim, flags);
   grid.sync();
   for (int node = first; node < n; node += stride)
     phase_merge(a, node, sc);
@@ -753,7 +951,8 @@ __global__ void __launch_bounds__(BLOCK) deep_round_kernel(RoundArgs a) {
 }
 
 // Blocks of the launch for n nodes: one node a thread while the nodes
-// fit the blocks that can be resident at once, else all of those.
+// fit the blocks that can be resident at once (with the kernel's
+// dynamic shared memory), else all of those.
 int grid_for(int n, int* grid) {
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -761,9 +960,13 @@ int grid_for(int n, int* grid) {
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess && SMEM_BYTES > 48 * 1024)
+    e = cudaFuncSetAttribute(deep_round_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM_BYTES);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, deep_round_kernel, BLOCK, 0);
+        &per_sm, deep_round_kernel, BLOCK, SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
   if (!coop) return (int)cudaErrorNotSupported;
   if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
@@ -781,6 +984,12 @@ extern "C" {
 long long deep_round_scratch_ints(int n) {
   return (long long)R_ROWS * n + (long long)E_PLANES * n * S;
 }
+
+// dynamic shared memory of a block of the kernel, in bytes
+int deep_round_smem_bytes() { return SMEM_BYTES; }
+
+// window steps an iteration of the folds' W loops
+int deep_round_window_unroll() { return W_UNROLL; }
 
 // the grid the launch for n nodes uses (>= 1), or -(CUDA error)
 int deep_round_grid(int n) {
@@ -805,8 +1014,8 @@ int deep_round(const int* params, const int* dm, const int* ca,
                  n, prio_bits, cmr};
   void* args[] = {&a};
   const cudaError_t e = cudaLaunchCooperativeKernel(
-      (const void*)deep_round_kernel, dim3(grid), dim3(BLOCK), args, 0,
-      static_cast<cudaStream_t>(stream));
+      (const void*)deep_round_kernel, dim3(grid), dim3(BLOCK), args,
+      SMEM_BYTES, static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) {
     cudaGetLastError();
     return (int)e;

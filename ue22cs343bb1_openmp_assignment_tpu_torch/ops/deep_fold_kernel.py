@@ -50,8 +50,11 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.deep_fold_pre.argtypes = [p] * 13 + [i, p]
     lib.deep_fold_flags.argtypes = [p] * 13 + [i, p]
     lib.deep_fold_replay.argtypes = [p] * 18 + [i, p]
+    lib.deep_fold_smem_bytes.argtypes = []
+    lib.deep_fold_window_unroll.argtypes = []
     for fn in (lib.deep_fold_pre, lib.deep_fold_flags,
-               lib.deep_fold_replay):
+               lib.deep_fold_replay, lib.deep_fold_smem_bytes,
+               lib.deep_fold_window_unroll):
         fn.restype = ctypes.c_int
 
 

@@ -70,6 +70,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.deep_round_scratch_ints.restype = ctypes.c_longlong
     lib.deep_round_grid.argtypes = [i]
     lib.deep_round_grid.restype = i
+    lib.deep_round_smem_bytes.argtypes = []
+    lib.deep_round_smem_bytes.restype = i
+    lib.deep_round_window_unroll.argtypes = []
+    lib.deep_round_window_unroll.restype = i
 
 
 LIBRARY = kernel_build.Library("deep_round", "deep_round.cu",
