@@ -7,9 +7,10 @@ Phases (each prints its own line; any failure exits non-zero):
 
 1. device: nvidia-smi name and power limit, torch and CUDA versions;
 2. build: the deep-window fold kernel (csrc/deep_fold.cu), the fused
-   round kernel (csrc/deep_round.cu) and the sync window engine's
+   round kernel (csrc/deep_round.cu), the sync window engine's
    window/replay and burst kernels (csrc/sync_window.cu,
-   csrc/sync_burst.cu) for every config used below, one nvcc per
+   csrc/sync_burst.cu) and its fused txn_width 1 round
+   (csrc/sync_round.cu) for every config used below, one nvcc per
    library, all started together; ptxas registers and spill bytes;
 3. kernel vs plain: each fold mode (pre, flags, replay) and the round
    kernel on inputs taken mid-run (after 8 rounds of deep@4096), kernel
@@ -38,16 +39,22 @@ Phases (each prints its own line; any failure exits non-zero):
    kernels against their plain versions on inputs taken 8 rounds into
    sync@4096 (txn_width 3 / drain_depth 4, and txn_width 1 /
    drain_depth 16) and in a contended 256-node config (locality 0.3:
-   releases, reacquires, dependent hits, truncation); 256 nodes x 64
-   rounds through the kernels on the card against the plain rounds on
-   the CPU; then ``TransactionalSystem.procedural`` at the sync bench
-   defaults (4096 nodes x 4096 instructions, chunk 64) to quiescence
-   through the kernels and through the plain rounds, at txn_width 3 and
-   at txn_width 1: equal rounds and states, every instruction retired,
-   launch counts (window == replay == rounds, or burst == rounds); 4
-   rounds at 1048576 nodes (txn_width 2), kernels against plain rounds;
-   8 rounds of the 4096-node txn_width 3 machine on stored traces made
-   from a seed, card against CPU;
+   releases, reacquires, dependent hits, truncation); the fused
+   txn_width 1 round (csrc/sync_round.cu) against plain_round at
+   sync@4096, in the contended config and at 65536 nodes (its grid
+   capped), its time, bound and ptxas figures; 256 nodes x 64 rounds
+   through the kernels on the card against the plain rounds on the CPU;
+   then ``TransactionalSystem.procedural`` at the sync bench defaults
+   (4096 nodes x 4096 instructions, chunk 64) to quiescence, at
+   txn_width 3 through the kernels and through the plain rounds (window
+   == replay == rounds), and at txn_width 1 on three routes, the fused
+   round (sync_round == rounds, sync_burst 0), the burst kernel inside
+   the eager round (sync_burst == rounds) and the plain rounds, each
+   with a torch.profiler window of 32 rounds (device launches, busy ms
+   and idle share a round): equal rounds and states, every instruction
+   retired; 4 rounds at 1048576 nodes (txn_width 2), kernels against
+   plain rounds; 8 rounds of the 4096-node txn_width 3 machine on
+   stored traces made from a seed, card against CPU;
 7. the message-level engine (async) and its routed delivery: the ring
    exchange kernel (csrc/ring_exchange.cu) against its plain version on
    the outbox lanes of the cycle 64 cycles into async@4096 (D = 4 and
@@ -101,6 +108,9 @@ TPU_KERNELS = {
     "sync_replay":
         "ue22cs343bb1_openmp_assignment_tpu/ops/pallas_window.py:206",
     "sync_burst": "ue22cs343bb1_openmp_assignment_tpu/ops/pallas_burst.py:42",
+    # the fused txn_width 1 round replaces the same TPU kernel with the
+    # eager round around it
+    "sync_round": "ue22cs343bb1_openmp_assignment_tpu/ops/pallas_burst.py:42",
     "ring": "ue22cs343bb1_openmp_assignment_tpu/parallel/rdma_comm.py:105",
 }
 CSRC = "ue22cs343bb1_openmp_assignment_tpu_torch/csrc/"
@@ -109,9 +119,10 @@ SOURCES = {"pre": CSRC + "deep_fold.cu", "flags": CSRC + "deep_fold.cu",
            "sync_window": CSRC + "sync_window.cu",
            "sync_replay": CSRC + "sync_window.cu",
            "sync_burst": CSRC + "sync_burst.cu",
+           "sync_round": CSRC + "sync_round.cu",
            "ring": CSRC + "ring_exchange.cu"}
 FOLD_MODES = ("pre", "flags", "replay")
-SYNC_KERNELS = ("sync_window", "sync_replay", "sync_burst")
+SYNC_KERNELS = ("sync_window", "sync_replay", "sync_burst", "sync_round")
 #: The recorded work of the deep rows (the three fold modes and the
 #: round), in integer operations a node: what ``sass_ops`` counted on
 #: the SASS of the one-thread-per-node kernels that the shared-memory
@@ -213,7 +224,8 @@ def _is_op(opcode: str) -> bool:
 
 
 def sass_ops(sass: str, function: str, steps: int, w_loops: int,
-             barriers: int = 0, every_path: bool = False) -> dict:
+             barriers: int = 0, every_path: bool = False,
+             block_barriers: int = 0) -> dict:
     """Integer operations per node of the kernel whose mangled name
     matches ``function``, counted on its machine code (``cuobjdump
     -sass``): the integer instructions that every thread runs for a
@@ -235,7 +247,9 @@ def sass_ops(sass: str, function: str, steps: int, w_loops: int,
       run only when a warp diverges at a barrier.
     - Each grid barrier (``barriers`` of them) is the code between a
       pair of BAR.SYNC: the master thread's atomic and spin loop. It is
-      left out, as are atomic and fence instructions anywhere.
+      left out, as are atomic and fence instructions anywhere. The last
+      ``block_barriers`` BAR.SYNC are block barriers after the last grid
+      barrier (the fused sync round's reduction of its counters).
     - Loops are backward branches. The fold's window loops (``w_loops``
       of them) are the loops nested in another loop (the round kernel's
       node loops), or the kernel's only loop; each counts ``steps``
@@ -264,10 +278,12 @@ def sass_ops(sass: str, function: str, steps: int, w_loops: int,
     end = exits[-1]
     ins = [i for i in ins if i[0] <= end]
     bars = [at for at, op, _ in ins if op.startswith("BAR.SYNC")]
-    if not every_path and len(bars) != 2 * barriers:
+    if not every_path and len(bars) != 2 * barriers + block_barriers:
         raise SmokeFailure(f"{function}: {len(bars)} BAR.SYNC for "
-                           f"{barriers} grid barriers")
-    fences = [] if every_path else list(zip(bars[::2], bars[1::2]))
+                           f"{barriers} grid barriers and {block_barriers} "
+                           "block barriers")
+    grid_bars = bars[:2 * barriers]
+    fences = [] if every_path else list(zip(grid_bars[::2], grid_bars[1::2]))
 
     def fenced(at):
         return any(lo <= at <= hi for lo, hi in fences)
@@ -756,6 +772,79 @@ def phase_sync_kernels() -> dict:
     return rows
 
 
+#: more nodes than the fused round's grid has threads: its node loops go
+#: round more than once
+SYNC_ROUND_BIG = 65536
+
+
+def phase_sync_round_kernel() -> dict:
+    """The fused txn_width 1 round against plain_round, bit for bit in
+    every output, on inputs taken mid-run at sync@4096 (drain_depth 16),
+    in the contended config and at 65,536 nodes (the grid capped);
+    returns its row, timed and bounded at sync@4096."""
+    import torch
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
+        sync_burst_kernel as sbk)
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
+        sync_round_kernel as srk)
+    N = BENCH["num_nodes"]
+    for cfg, warm in ((sync_cfg(N, 1), 8), (sync_contended_cfg(1), 6),
+                      (sync_cfg(SYNC_ROUND_BIG, 1), 4)):
+        n = cfg.num_nodes
+        st = _sync_mid_run(cfg, warm)
+        args = srk.round_inputs(cfg, st)
+        lib = srk.LIBRARY.load(cfg)
+        grid = lib.sync_round_grid(n)
+        if grid <= 0:
+            raise SmokeFailure(f"sync_round@{n}: no grid (CUDA error "
+                               f"{-grid})")
+        if n == SYNC_ROUND_BIG and grid != lib.sync_round_grid(2 * n):
+            raise SmokeFailure(f"sync_round@{n}: grid {grid} is not capped")
+        want = srk.plain_round(*args)
+        k_out = flat_outputs(srk.fused_round(*args))
+        compare(f"sync_round@{n}", k_out, flat_outputs(want))
+        say("kernel", f"sync round at {n} nodes (locality "
+            f"{cfg.proc_local_permille / 1000}, {warm} rounds in): "
+            f"{len(k_out)} outputs bit-identical to plain_round; grid "
+            f"{grid} blocks of 64 for {n} nodes; retired "
+            f"{int(want[6][1] - args[9][1])}, conflicts "
+            f"{int(want[6][7] - args[9][7])}")
+        if n == N:
+            bench_args, bench_st = args, st
+    cfg, args, st = sync_cfg(N, 1), bench_args, bench_st
+    ms = kernel_ms(lambda: [srk.fused_round(*args) for _ in range(20)],
+                   "sync_round_kernel")
+    plain_ms = event_ms(lambda: srk.plain_round(*args), 3)
+    # the burst needs its d hits and the slot that stops it
+    d = sbk.plain_burst(cfg, st.cache_addr, st.cache_val, st.cache_state,
+                        st.idx, st.instr_count)[0]
+    steps = int((d + 1).sum())
+    count = sass_ops(kernel_sass(srk.LIBRARY, cfg), "sync_round_kernel", 1,
+                     1, barriers=3, block_barriers=1)
+    ops = count["per_step"][0] * steps + count["once"] * N
+    io_bytes = sum(srk.io_contract_bytes(cfg))
+    r = row("sync_round", "sync_round", ms, plain_ms, io_bytes, ops)
+    ptx = srk.LIBRARY.ptxas_summary(cfg).get("round", {})
+    lib = srk.LIBRARY.load(cfg)
+    static_smem = lib.sync_round_static_smem_bytes()
+    if static_smem < 0:
+        raise SmokeFailure(f"sync_round: cudaFuncGetAttributes failed "
+                           f"(CUDA error {-static_smem})")
+    r.update(registers=ptx.get("registers"),
+             spill_bytes=ptx.get("spill_stores", 0)
+             + ptx.get("spill_loads", 0),
+             dynamic_smem_bytes=lib.sync_round_smem_bytes(),
+             static_smem_bytes=static_smem)
+    torch.cuda.synchronize()
+    say("kernel", f"sync_round: kernel {ms:.4f} ms, plain {plain_ms:.2f} "
+        f"ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}: {io_bytes} B, "
+        f"{ops} integer ops = {steps} steps x {count['per_step'][0]} + N x "
+        f"{count['once']}: {count}); ptxas {ptx}; "
+        f"{r['dynamic_smem_bytes']} B of dynamic shared memory a block (the "
+        f"launch's), {static_smem} B static (cudaFuncGetAttributes)")
+    return r
+
+
 def _leaves_differ(a: dict, b: dict):
     import numpy as np
     return next((k for k in a if not np.array_equal(a[k], b[k])), None)
@@ -800,52 +889,147 @@ def _stored_traces(cfg, seed: int):
             np.full((N,), T, np.int32))
 
 
+def _burst_route(cfg):
+    """``run`` for ``_drive``: the txn_width 1 rounds with the burst
+    kernel inside the eager round (``_round_step_single(use_kernel=
+    True)``), to quiescence as ``run_sync_to_quiescence`` runs them
+    (quiescence tested between chunk-round blocks)."""
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import sync_engine as se
+
+    def run(sys0):
+        st = sys0.state
+        while not bool(st.quiescent()):
+            for _ in range(BENCH["chunk"]):
+                st = se._round_step_single(cfg, st, use_kernel=True)
+        return dataclasses.replace(sys0, state=st)
+    return run
+
+
+#: the profiler window of each txn_width 1 route, long enough that the
+#: kernel events the profiler misses near a window's edges do not matter
+#: (32 rounds of the fused route, about 6 ms under the profiler, showed
+#: about 0.7 of its one launch a round on an H100)
+PROFILE_ROUNDS = 128
+
+
+def _sync_single_routes(rows: dict) -> None:
+    """sync@4096 x 4096 at txn_width 1 (drain_depth 16) to quiescence on
+    three routes, in one process: the fused round (one kernel a round,
+    the bench's route on a card), the burst kernel inside the eager
+    round, and the plain rounds. Each run's launch counts are set to 0
+    just before it and read just after; each route's torch.profiler
+    window of PROFILE_ROUNDS rounds (16 rounds in) gives its device
+    launches, busy ms and idle share a round, and how many launches of
+    the route's kernel the profiler saw."""
+    from ue22cs343bb1_openmp_assignment_tpu_torch import bench, convert
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import sync_engine as se
+    N, length = BENCH["num_nodes"], BENCH["trace_len"]
+    fused, plain = sync_cfg(N, 1), sync_cfg(N, 1, kernels=False)
+    routes = {
+        "fused round": (fused, lambda s: s.run(chunk=BENCH["chunk"]),
+                        lambda st: se.round_step(fused, st), "sync_round"),
+        "burst kernel": (fused, _burst_route(fused),
+                         lambda st: se._round_step_single(
+                             fused, st, use_kernel=True), "sync_burst"),
+        "plain rounds": (plain, lambda s: s.run(chunk=BENCH["chunk"]),
+                         lambda st: se.round_step(plain, st), None)}
+    mid = se.run_rounds(plain, se.procedural_state(plain, length,
+                                                   device="cuda"), 16)
+    finals = {}
+    for route, (cfg, run, step, mine) in routes.items():
+        done, wall, counts = _drive(cfg, run)
+        m = done.metrics
+        if not done.quiescent:
+            raise SmokeFailure(f"sync@{N} txn_width 1 ({route}) did not "
+                               "reach quiescence")
+        if m["instrs_retired"] != N * length:
+            raise SmokeFailure(f"retired {m['instrs_retired']} of "
+                               f"{N * length}")
+        inv = done.check_invariants()
+        for kernel, n in counts.items():
+            want = m["rounds"] if kernel == mine else 0
+            if n != want:
+                raise SmokeFailure(
+                    f"sync txn_width 1 ({route}): {n} launches of the "
+                    f"{kernel} kernel in {m['rounds']} rounds, expected "
+                    f"{want}")
+        if mine:
+            rows[mine]["launches"] = counts[mine]
+        prof = bench.profile_steps(step, mid, PROFILE_ROUNDS)
+        calls = prof["kernel_calls_per_round"].get(mine, 0) * PROFILE_ROUNDS
+        seen = f" ({calls:.0f} of the {mine} kernel seen)" if mine else ""
+        finals[route] = (m["rounds"], convert.to_numpy(done.state))
+        say("main", f"sync@{N} x {length}, txn_width 1, drain_depth "
+            f"{cfg.drain_depth}, through the {route}: quiescent after "
+            f"{m['rounds']} rounds, {m['instrs_retired'] / wall:.6g} "
+            f"instrs/sec, {wall * 1e3 / m['rounds']:.4f} ms/round, wall "
+            f"{wall:.2f} s, launches "
+            f"{ {k: v for k, v in counts.items() if v} }, invariant {inv}; "
+            f"profile of {PROFILE_ROUNDS} rounds: "
+            f"{prof['device_launches_per_round']:.2f} device launches"
+            f"{seen}, "
+            f"busy {prof['device_busy_ms_per_round']:.4f} ms, idle share "
+            f"{prof['device_idle_share']:.3f}, "
+            f"{prof['wall_ms_per_round']:.4f} ms/round under the profiler, "
+            f"kernels {prof['kernel_ms_per_round']}")
+    (r0, a) = finals["fused round"]
+    for route in ("burst kernel", "plain rounds"):
+        r1, b = finals[route]
+        bad = _leaves_differ(a, b)
+        if r0 != r1 or bad:
+            raise SmokeFailure(f"sync txn_width 1: the fused round ({r0} "
+                               f"rounds) and the {route} ({r1}) end in "
+                               f"different states (leaf {bad})")
+    say("main", f"sync txn_width 1: fused round, burst kernel and plain "
+        f"rounds, same {r0} rounds, every leaf equal")
+
+
 def phase_sync_main_path(rows: dict) -> None:
     from ue22cs343bb1_openmp_assignment_tpu_torch import convert
     from ue22cs343bb1_openmp_assignment_tpu_torch.ops import sync_engine as se
     N, length = BENCH["num_nodes"], BENCH["trace_len"]
-    for K, mine in ((3, ("sync_window", "sync_replay")),
-                    (1, ("sync_burst",))):
-        finals = {}
-        for kernels in (True, False):
-            cfg = sync_cfg(N, K, kernels)
-            done, wall, counts = _drive(
-                cfg, lambda s: s.run(chunk=BENCH["chunk"]))
-            m = done.metrics
-            route = "kernels" if kernels else "plain rounds"
-            if not done.quiescent:
-                raise SmokeFailure(f"sync@{N} txn_width {K} ({route}) did "
-                                   "not reach quiescence")
-            if m["instrs_retired"] != N * length:
-                raise SmokeFailure(f"retired {m['instrs_retired']} of "
-                                   f"{N * length}")
-            inv = done.check_invariants()
-            for kernel, n in counts.items():
-                want = m["rounds"] if kernels and kernel in mine else 0
-                if n != want:
-                    raise SmokeFailure(
-                        f"sync txn_width {K} ({route}): {n} launches of "
-                        f"the {kernel} kernel in {m['rounds']} rounds, "
-                        f"expected {want}")
-                if want:
-                    rows[kernel]["launches"] = n
-            finals[kernels] = (m["rounds"], convert.to_numpy(done.state))
-            say("main", f"sync@{N} x {length}, txn_width {K}, drain_depth "
-                f"{cfg.drain_depth}, through the {route}: quiescent after "
-                f"{m['rounds']} rounds, "
-                f"{m['instrs_retired'] / wall:.6g} instrs/sec, "
-                f"{wall * 1e3 / m['rounds']:.4f} ms/round, wall "
-                f"{wall:.2f} s, launches "
-                f"{ {k: v for k, v in counts.items() if v} }, "
-                f"invariant {inv}")
-        (r0, a), (r1, b) = finals[True], finals[False]
-        bad = _leaves_differ(a, b)
-        if r0 != r1 or bad:
-            raise SmokeFailure(f"sync txn_width {K}: the kernels ({r0} "
-                               f"rounds) and the plain rounds ({r1}) end in "
-                               f"different states (leaf {bad})")
-        say("main", f"sync txn_width {K}: kernels and plain rounds, same "
-            f"{r0} rounds, every leaf equal")
+    K, mine = 3, ("sync_window", "sync_replay")
+    finals = {}
+    for kernels in (True, False):
+        cfg = sync_cfg(N, K, kernels)
+        done, wall, counts = _drive(
+            cfg, lambda s: s.run(chunk=BENCH["chunk"]))
+        m = done.metrics
+        route = "kernels" if kernels else "plain rounds"
+        if not done.quiescent:
+            raise SmokeFailure(f"sync@{N} txn_width {K} ({route}) did "
+                               "not reach quiescence")
+        if m["instrs_retired"] != N * length:
+            raise SmokeFailure(f"retired {m['instrs_retired']} of "
+                               f"{N * length}")
+        inv = done.check_invariants()
+        for kernel, n in counts.items():
+            want = m["rounds"] if kernels and kernel in mine else 0
+            if n != want:
+                raise SmokeFailure(
+                    f"sync txn_width {K} ({route}): {n} launches of "
+                    f"the {kernel} kernel in {m['rounds']} rounds, "
+                    f"expected {want}")
+            if want:
+                rows[kernel]["launches"] = n
+        finals[kernels] = (m["rounds"], convert.to_numpy(done.state))
+        say("main", f"sync@{N} x {length}, txn_width {K}, drain_depth "
+            f"{cfg.drain_depth}, through the {route}: quiescent after "
+            f"{m['rounds']} rounds, "
+            f"{m['instrs_retired'] / wall:.6g} instrs/sec, "
+            f"{wall * 1e3 / m['rounds']:.4f} ms/round, wall "
+            f"{wall:.2f} s, launches "
+            f"{ {k: v for k, v in counts.items() if v} }, "
+            f"invariant {inv}")
+    (r0, a), (r1, b) = finals[True], finals[False]
+    bad = _leaves_differ(a, b)
+    if r0 != r1 or bad:
+        raise SmokeFailure(f"sync txn_width {K}: the kernels ({r0} "
+                           f"rounds) and the plain rounds ({r1}) end in "
+                           f"different states (leaf {bad})")
+    say("main", f"sync txn_width {K}: kernels and plain rounds, same "
+        f"{r0} rounds, every leaf equal")
+    _sync_single_routes(rows)
 
     states = {}
     for kernels in (True, False):
@@ -1155,7 +1339,7 @@ def main() -> int:
             f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
         from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
             deep_fold_kernel, deep_round_kernel, sync_burst_kernel,
-            sync_window_kernel)
+            sync_round_kernel, sync_window_kernel)
         from ue22cs343bb1_openmp_assignment_tpu_torch.parallel import (
             ring_kernel)
         cfg = bench_cfg(BENCH["num_nodes"])
@@ -1171,6 +1355,10 @@ def main() -> int:
             + [(sync_burst_kernel.LIBRARY, c)
                for c in (sync_cfg(BENCH["num_nodes"], 1),
                          sync_contended_cfg(1))]
+            + [(sync_round_kernel.LIBRARY, c)
+               for c in (sync_cfg(BENCH["num_nodes"], 1),
+                         sync_contended_cfg(1),
+                         sync_cfg(SYNC_ROUND_BIG, 1))]
             # one ring library serves every (D, shape): both are run-time
             # arguments
             + [(ring_kernel.LIBRARY, None)])
@@ -1179,6 +1367,7 @@ def main() -> int:
         phase_card_vs_cpu()
         phase_main_path(rows)
         rows.update(phase_sync_kernels())
+        rows["sync_round"] = phase_sync_round_kernel()
         phase_sync_card_vs_cpu()
         phase_sync_main_path(rows)
         rows["ring"] = phase_ring_kernel()

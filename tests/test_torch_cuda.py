@@ -1,6 +1,7 @@
 """The CUDA kernels (the deep fold, the fused round, the sync window
-engine's window, replay and burst kernels, and the routed transport's
-ring exchange) against their plain versions, on the card.
+engine's window, replay and burst kernels, its fused txn_width 1 round,
+and the routed transport's ring exchange) against their plain versions,
+on the card.
 
 Marked ``cuda``: each test skips without a card (decided inside the
 fixture, never at import). The card machine has no JAX, so run this file
@@ -26,6 +27,8 @@ from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
     sync_burst_kernel as sbk)
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import sync_engine as se
+from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
+    sync_round_kernel as srk)
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
     sync_window_kernel as swk)
 from ue22cs343bb1_openmp_assignment_tpu_torch.models.system import (
@@ -211,21 +214,79 @@ def test_burst_kernel_equals_plain_mid_run(card, H, local):
     assert sbk.burst.launches == before + 1
 
 
-@pytest.mark.parametrize("K,H", [(3, 4), (1, 16)], ids=["multi", "single"])
-def test_sync_rounds_kernels_equal_plain_rounds_and_cpu(card, K, H):
+@pytest.mark.parametrize("K,H,route", [(3, 4, "kernel"), (1, 16, "kernel"),
+                                       (1, 16, "burst")],
+                         ids=["multi", "single", "single-burst"])
+def test_sync_rounds_kernels_equal_plain_rounds_and_cpu(card, K, H, route):
+    """Rounds to quiescence on the card through the kernels (txn_width
+    1: the fused round, or the burst kernel inside the eager round),
+    through the plain rounds on the card, and on the CPU: same rounds,
+    every leaf equal."""
     cfg = _sync_cfg(128, K, H, proc_local_permille=500)
     plain = dataclasses.replace(cfg, pallas_burst=False)
-    k = se.procedural_state(cfg, 4096, seed=3, device=card)
-    p, c = k, se.procedural_state(cfg, 4096, seed=3, device="cpu")
-    for _ in range(8):
-        k = se.round_step(cfg, k)
-        p = se.round_step(plain, p)
-        c = se.round_step(plain, c)
+    if route == "burst":
+        def step(st):
+            return se._round_step_single(cfg, st, use_kernel=True)
+    else:
+        def step(st):
+            return se.round_step(cfg, st)
+    k = se.procedural_state(cfg, 64, seed=3, device=card)
+    p, c = k, se.procedural_state(cfg, 64, seed=3, device="cpu")
+    before = srk.fused_round.launches, sbk.burst.launches
+    rounds = 0
+    while not bool(c.quiescent()):
+        k, p, c = step(k), se.round_step(plain, p), se.round_step(plain, c)
+        rounds += 1
+    assert bool(k.quiescent()) and bool(p.quiescent())
+    if K == 1:
+        assert (srk.fused_round.launches - before[0],
+                sbk.burst.launches - before[1]) == (
+            (rounds, 0) if route == "kernel" else (0, rounds))
     want = convert.to_numpy(c)
     for st in (k, p):
         got = convert.to_numpy(st)
         for name in want:
             assert (want[name] == got[name]).all(), name
+
+
+#: the fused round's configs: those of tests/test_torch_sync_fused.py,
+#: and 65,536 nodes (more than the grid's threads: the node loops go round
+#: more than once)
+FUSED = {
+    "n1-c2-m8-h1": (1, dict(cache_size=2, mem_size=8, drain_depth=1)),
+    "n12-c8-m8-h16": (12, dict(cache_size=8, mem_size=8, drain_depth=16,
+                               proc_local_permille=300)),
+    "n33-c2-m32-h4": (33, dict(cache_size=2, mem_size=32, drain_depth=4,
+                               proc_local_permille=300)),
+    "n1000-bench": (1000, dict(drain_depth=16, proc_local_permille=800)),
+    "n256-contended": (256, dict(drain_depth=4, proc_local_permille=300)),
+    "n4096-bench": (4096, dict(drain_depth=16, proc_local_permille=800)),
+    "n65536": (65536, dict(drain_depth=16, proc_local_permille=800)),
+}
+
+
+@pytest.mark.parametrize("case", list(FUSED))
+def test_fused_sync_round_equals_plain_round(card, case):
+    n, kw = FUSED[case]
+    kw = dict(kw)
+    cfg = _sync_cfg(n, 1, kw.pop("drain_depth"), **kw)
+    assert srk.supported(cfg)
+    lib = srk.LIBRARY.load(cfg)
+    if n > 4096:
+        assert lib.sync_round_grid(n) == lib.sync_round_grid(2 * n)
+    # the kernel's block partials are static; it takes no dynamic smem
+    assert lib.sync_round_smem_bytes() == 0
+    assert lib.sync_round_static_smem_bytes() > 0
+    st = se.run_rounds(cfg, se.procedural_state(cfg, 4096, device=card), 6,
+                       fold_impl="plain")
+    for _ in range(3):
+        args = srk.round_inputs(cfg, st)
+        before = srk.fused_round.launches
+        got = srk.fused_round(*args)
+        assert srk.fused_round.launches == before + 1
+        for a, b in zip(got, srk.plain_round(*args)):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        st = srk.round_step_fused(cfg, st)
 
 
 def test_sync_wrappers_refuse_bad_operands(card):
@@ -245,6 +306,30 @@ def test_sync_wrappers_refuse_bad_operands(card):
         swk.replay(*args, fl, fills.T.contiguous().T, fills)
     with pytest.raises(ValueError, match="not CUDA"):
         sbk.launch(cfg, *[t.cpu() for t in args[1:]])
+    single = _sync_cfg(256, 1, 16)
+    args = srk.round_inputs(single, se.procedural_state(single, 64,
+                                                        device=card))
+    bad = list(args)
+    bad[3] = args[3].to(torch.int64)                 # cache_state
+    with pytest.raises(ValueError, match="int32"):
+        srk.fused_round(*bad)
+    bad = list(args)
+    bad[1] = args[1].T.contiguous().T                # cache_addr
+    with pytest.raises(ValueError, match="contiguous"):
+        srk.fused_round(*bad)
+    bad = list(args)
+    bad[4] = args[4][:-7]                            # dm
+    with pytest.raises(ValueError, match="dm"):
+        srk.fused_round(*bad)
+    bad = list(args)
+    bad[9] = args[9][:10]                            # metrics
+    with pytest.raises(ValueError, match="metrics"):
+        srk.fused_round(*bad)
+    bad = list(args)
+    bad[2] = torch.empty(256 * 4 + 1, dtype=torch.int32,
+                         device=card)[1:].view(256, 4)   # cache_val
+    with pytest.raises(ValueError, match="16-byte"):
+        srk.fused_round(*bad)
 
 
 # -- the message-level engine: the ring exchange and routed delivery ---------

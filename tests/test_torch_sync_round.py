@@ -6,9 +6,10 @@ JAX namesakes, from mid-run states carried across with
 ``convert.from_numpy``. Each case runs the port twice from the same
 state: the plain round with the event record (held to JAX's events as
 well), and, on procedural workloads, the kernel route
-(``cfg.pallas_burst``), whose wrappers run the kernels' plain versions
-on the CPU (the CUDA kernels are held to those on the card by
-chip_smoke.py and tests/test_torch_cuda.py). Stored traces are made once
+(``cfg.pallas_burst``: the window kernels, or at txn_width 1 the fused
+round), whose wrappers run the kernels' plain versions on the CPU (the
+CUDA kernels are held to those on the card by chip_smoke.py and
+tests/test_torch_cuda.py). Stored traces are made once
 with numpy from a seed and fed to both sides. The sync rounds do not
 read ``cfg.protocol``, so there are no variant cases. Every comparison
 is exact (int32, tolerance 0).
@@ -31,6 +32,8 @@ from ue22cs343bb1_openmp_assignment_tpu_torch import convert
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
     sync_burst_kernel as sbk)
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import sync_engine as tse
+from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
+    sync_round_kernel as srk)
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
     sync_window_kernel as swk)
 from ue22cs343bb1_openmp_assignment_tpu_torch.utils import eventlog
@@ -145,11 +148,15 @@ def test_untileable_node_count_takes_the_kernel_route(monkeypatch):
 
 def test_round_step_dispatch(monkeypatch):
     """pallas_burst routes procedural rounds without events through the
-    kernel modules; stored traces and event tracing keep the plain
-    rounds, as in JAX."""
+    kernel modules (txn_width 1: the fused round, or the burst kernel
+    where the fused round does not take the config); stored traces and
+    event tracing keep the plain rounds, as in JAX."""
     seen = []
     monkeypatch.setattr(swk, "round_step_multi_kernel",
                         lambda cfg, st, impl: seen.append(("multi", impl))
+                        or st)
+    monkeypatch.setattr(srk, "round_step_fused",
+                        lambda cfg, st, impl: seen.append(("fused", impl))
                         or st)
     burst = sbk.plain_burst
     monkeypatch.setattr(sbk, "burst",
@@ -166,15 +173,21 @@ def test_round_step_dispatch(monkeypatch):
     assert int(tse.round_step(off, st).round) == 1
     assert len(seen) == 2
     single = dataclasses.replace(multi, txn_width=1)
-    assert int(tse.round_step(single, st).round) == 1
-    assert seen[2:] == [("burst",)]
-    assert int(tse.round_step(single, st, "plain").round) == 1
-    assert len(seen) == 3
+    assert tse.round_step(single, st) is st
+    assert tse.round_step(single, st, "plain") is st
+    assert seen[2:] == [("fused", "kernel"), ("fused", "plain")]
+    wide = dataclasses.replace(single, cache_size=64)
+    assert sbk.supported(wide) and not srk.supported(wide)
+    wst = tse.procedural_state(wide, 16, device="cpu")
+    assert int(tse.round_step(wide, wst).round) == 1
+    assert seen[4:] == [("burst",)]
+    assert int(tse.round_step(wide, wst, "plain").round) == 1
+    assert len(seen) == 5
     _, stored = cfg_pair(4, reference=True, txn_width=2, pallas_burst=True)
     traces = jtrace.load_test_dir(str(MINI), 4, stored.max_instrs)
     sst = tse.from_traces(stored, traces, device="cpu")
     assert int(tse.round_step(stored, sst).round) == 1
-    assert len(seen) == 3
+    assert len(seen) == 5
     with pytest.raises(ValueError, match="fold_impl"):
         tse.round_step(multi, st, "xla")
     _, deep = cfg_pair(16, **dict(PROC, deep_window=True))

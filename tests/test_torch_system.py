@@ -26,7 +26,7 @@ from ue22cs343bb1_openmp_assignment_tpu_torch.models.transactional import (
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
     deep_round_kernel as drk)
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
-    sync_burst_kernel as sbk)
+    sync_round_kernel as srk)
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
     sync_window_kernel as swk)
 
@@ -34,8 +34,8 @@ from tests.torch_parity import BENCH_DEEP, assert_states_equal, cfg_pair
 
 LENGTH, CHUNK = 32, 16
 NO_LAUNCHES = {"pre": 0, "flags": 0, "replay": 0, "round": 0,
-               "sync_burst": 0, "sync_window": 0, "sync_replay": 0,
-               "ring": 0}
+               "sync_burst": 0, "sync_round": 0, "sync_window": 0,
+               "sync_replay": 0, "ring": 0}
 
 
 @functools.lru_cache(maxsize=None)
@@ -168,12 +168,13 @@ def test_sync_run_to_quiescence_matches_jax(case, kernels, monkeypatch):
     """TransactionalSystem.procedural(...).run() on a sync config: final
     state, metrics, dumps and the invariant report equal JAX's. With
     pallas_burst every round goes through the kernel wrappers (their
-    plain versions on the CPU)."""
+    plain versions on the CPU): the window kernels' at txn_width 3, the
+    fused round's at txn_width 1."""
     nodes, kw, length = SYNC_CASES[case]
     jcfg, want = _jax_sync_quiescent(case)
     _, tcfg = cfg_pair(nodes, **dict(kw, pallas_burst=kernels))
     calls = []
-    for mod, name in ((swk, "plain_window"), (sbk, "plain_burst")):
+    for mod, name in ((swk, "plain_window"), (srk, "plain_round")):
         fn = getattr(mod, name)
         monkeypatch.setattr(
             mod, name, lambda *a, _fn=fn: calls.append(1) or _fn(*a))
@@ -239,8 +240,8 @@ def test_continue_with_streams_a_second_phase():
     ids=["auto", "on", "single-on"])
 def test_bench_sync_engine_on_cpu(capsys, extra, kernels, width):
     """--engine sync: the JAX bench's window defaults, the kernel switch
-    (auto keeps the plain rounds off the card), launch counts of all
-    seven kernels (none on the CPU)."""
+    (auto keeps the plain rounds off the card), launch counts of every
+    kernel (none on the CPU)."""
     doc = _bench_doc(capsys, "--engine", "sync", *extra)
     assert doc["engine"] == "sync" and doc["window_kernels"] is kernels
     assert doc["config"]["txn_width"] == width

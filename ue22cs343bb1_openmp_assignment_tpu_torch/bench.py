@@ -26,9 +26,9 @@ fused round on a card where ``supported(cfg)`` holds, as the JAX
 ``--engine sync`` is the sync window engine: txn_width 3 and drain_depth
 4 by default, drain_depth 16 at ``--txn-width 1``. ``--window-kernels``
 sets ``cfg.pallas_burst``, which routes the node-local folds through the
-CUDA kernels (``ops/sync_window_kernel``, or ``ops/sync_burst_kernel``
-at txn_width 1); ``auto`` turns it on for a card, ``off`` measures the
-plain rounds.
+CUDA kernels (``ops/sync_window_kernel``), or at txn_width 1 the whole
+round through one kernel (``ops/sync_round_kernel``); ``auto`` turns it
+on for a card, ``off`` measures the plain rounds.
 
 ``--engine async`` is the message-level engine (``ops.step``) at the JAX
 ``bench.py``'s async defaults: scatter INV (``SystemConfig.scale``),
@@ -69,12 +69,15 @@ from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
     sync_burst_kernel as sbk)
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import sync_engine as se
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
+    sync_round_kernel as srk)
+from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
     sync_window_kernel as swk)
 from ue22cs343bb1_openmp_assignment_tpu_torch.parallel import ring_kernel
 
 #: the port's kernels by the name the profiler reports them under
 KERNEL_NAMES = {"fold": "deep_fold_kernel", "round": "deep_round_kernel",
                 "sync_burst": "sync_burst_kernel",
+                "sync_round": "sync_round_kernel",
                 "sync_window": "sync_window_kernel",
                 "sync_replay": "sync_replay_kernel",
                 "ring": "ring_exchange_kernel"}
@@ -105,8 +108,8 @@ def sync_config(nodes: int, txn_width: int = 3, drain_depth=None,
 
 
 _COUNTED = {"round": drk.fused_round, "sync_burst": sbk.burst,
-            "sync_window": swk.window, "sync_replay": swk.replay,
-            "ring": ring_kernel.exchange}
+            "sync_round": srk.fused_round, "sync_window": swk.window,
+            "sync_replay": swk.replay, "ring": ring_kernel.exchange}
 
 
 def reset_launch_counts() -> None:
@@ -187,10 +190,10 @@ def profile_rounds(cfg, st, rounds: int, fold_impl: str) -> dict:
 
 
 def profile_steps(step_fn, st, rounds: int) -> dict:
-    """Device-busy share, device launches and device time by kernel over
-    `rounds` calls of ``step_fn`` (a round, or a cycle of the async
-    engine, whose numbers read per cycle; the wall time here includes
-    the profiler's cost)."""
+    """Device-busy share, device launches, and device time and calls by
+    kernel over `rounds` calls of ``step_fn`` (a round, or a cycle of
+    the async engine, whose numbers read per cycle; the wall time here
+    includes the profiler's cost)."""
     box = [st]
 
     def run():
@@ -203,14 +206,16 @@ def profile_steps(step_fn, st, rounds: int) -> dict:
         tot, n = by_name.get(name, (0.0, 0))
         by_name[name] = (tot + us, n + 1)
     busy_us = sum(us for _, us in events)
-    ours = {k: sum(us for name, us in events if kname in name)
+    ours = {k: [us for name, us in events if kname in name]
             for k, kname in KERNEL_NAMES.items()}
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     return {"rounds": rounds, "wall_ms_per_round": wall * 1e3 / rounds,
             "device_busy_ms_per_round": busy_us / 1e3 / rounds,
             "device_idle_share": 1 - busy_us / 1e6 / wall,
-            "kernel_ms_per_round": {k: us / 1e3 / rounds
+            "kernel_ms_per_round": {k: sum(us) / 1e3 / rounds
                                     for k, us in ours.items() if us},
+            "kernel_calls_per_round": {k: len(us) / rounds
+                                       for k, us in ours.items() if us},
             "device_launches_per_round": len(events) / rounds,
             "top_kernels": [{"name": k[:80], "ms_per_round":
                              us / 1e3 / rounds, "calls_per_round":

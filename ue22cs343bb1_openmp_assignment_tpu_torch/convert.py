@@ -57,8 +57,8 @@ def from_numpy(cfg: SystemConfig, leaves: dict, device=None) -> SyncState:
     def t(a):
         return torch.as_tensor(np.array(a, dtype=np.int32), device=dev)
 
-    metrics = SyncMetrics(**{m: t(leaves[f"metrics.{m}"])
-                             for m in METRIC_FIELDS})
+    metrics = SyncMetrics(t([leaves[f"metrics.{m}"]
+                             for m in METRIC_FIELDS]))
     return SyncState(**{f: t(leaves[f]) for f in STATE_FIELDS},
                      metrics=metrics)
 

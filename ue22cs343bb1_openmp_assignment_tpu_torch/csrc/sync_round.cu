@@ -1,0 +1,573 @@
+// The whole single-transaction (txn_width 1) round for Hopper (sm_90a):
+// one cooperative kernel a round.
+//
+// Replaces the JAX package's ops/pallas_burst.py:_kernel and the eager
+// round around it. Mosaic has no vector gather and no atomics, so the
+// TPU kernel can only be the node-local phases 1-2a of the round (the
+// burst), and the arbitration, the commit and the fan-out stay XLA ops
+// around it. An H100 has gathers, atomics and grid-wide barriers, so one
+// launch here takes the state as the engine holds it to the next round's
+// state, as ops/sync_round_kernel.plain_round does in plain PyTorch
+// (ops/sync_engine._round_step_single's tensor code):
+//
+//   in:  cache_addr/val/state [n, C], read in place (one 16-byte load a
+//        plane and node at C = 4), dm [E, 7], idx and instr_count [n],
+//        round and seed (0-d), the 11 metric counters [11];
+//   out: the cache planes, dm, idx, round + 1 and the counters.
+//
+// Phases (each "|" is a grid barrier, cooperative_groups::this_grid()
+// .sync(); the launch is cooperative, so every block is resident):
+//
+//   P0  the grid copies dm to dm_out in 16-byte words (consecutive
+//       threads on consecutive words, 8 loads in flight a thread);
+//       block 0 writes round + 1 and the counters with rounds + 1 |
+//   P1  per node: the burst (csrc/sync_burst.cuh) on the round-start
+//       cache, with the post-burst values and states written to the
+//       output planes; the stopped instruction classified against the
+//       post-burst line (transaction, upgrade, victim); the claim key of
+//       sync_engine._round_key_rs in uint32 arithmetic; a signed
+//       atomicMin of the key on dm_out[e1, DM_CLAIM] and, for a victim,
+//       on dm_out[e2, DM_CLAIM] (entries are clipped into [0, E), so no
+//       claim drops; a lane without a transaction claims nothing, as the
+//       index E of TorchIndexOps.scatter_min drops it) |
+//   P2  the claim words at e1 and e2 decide `win`; a winner reads its
+//       rows at e1 and e2 and the owner's post-burst line (val_o), works
+//       out the transaction and eviction outcomes in registers and
+//       writes its two committed rows; every node's idx advances by
+//       d + win, and its fill goes to scratch |
+//   P3  the fan-out: each valid line reads DM_ACT and DM_REQ at its
+//       tag's entry and is killed, downgraded or promoted; a promoted
+//       line writes its node as DM_OWNER. Then, in the same thread, the
+//       winner's fill of its own line and the cache rows out. The
+//       metric deltas, summed in registers over the thread's nodes, are
+//       reduced per block and added with one integer atomicAdd per
+//       counter and block (order-free, so the result is deterministic).
+//
+// The plain round's P2a (gathers, win, outcomes) and P2b (the commit
+// scatter) run here without a barrier between them. Every value read
+// across that merge is settled or masked by a loss:
+//
+// - A committed row at entry x is written only by x's winner w, which
+//   holds the minimum claim key on x (keys are unique per node). Any
+//   other node r that reads x's row uses it only if r wins and x is its
+//   e1, or its e2 with a victim; r then claimed x, so x's claim word is
+//   below r's key and r loses. A row's DM_CLAIM word is rewritten with
+//   the winner's key, the value it holds already, so a claim word read
+//   during the write is the same either way.
+// - val_o reads the output cache planes, which P1 wrote and only P3
+//   (after a barrier) writes again.
+// - The rows' DM_ACT and DM_REQ words that P2 writes are read only in
+//   P3, after a barrier.
+//
+// P3 reads DM_ACT and DM_REQ and writes DM_OWNER, different words, and
+// each node writes only its own cache lines. A promoted entry has one
+// holder left (the directory is exact), so its DM_OWNER has one writer.
+// P0 | P1 stays a barrier (P1's atomics need the copy of the claim words
+// under them), and so does P2 | P3 (the fan-out needs every committed
+// row). Three grid barriers.
+//
+// Per-node values that cross a barrier go through scratch in device
+// memory ([R_ROWS, n], written and read by the same thread, coalesced),
+// so a thread can run several nodes: the grid is sized by an occupancy
+// query (made once a device and cached), one node a thread while the
+// nodes fit, larger machines loop.
+//
+// What bounds it on the H100: bytes. At sync@4096 the launch must move
+// dm in and out (E = 65,536 rows of 28 B each way, 3.67 MB) and the
+// cache, cursor and counter planes (about 0.46 MB); its integer work is
+// the burst's hash for d + 1 slots a node and a few hundred instructions
+// of classification, key, outcomes and fan-out, a tenth of the bytes'
+// time. The dm copy is the only part that needs bandwidth; the rest is
+// the burst's dependent chain, a few gathers and three grid barriers.
+// Its times beside its bound are in PERF.md, section 6.
+//
+// Semantics kept from JAX's int32: shifts of signed values whose result
+// may wrap (round << 2, the key) go through uint32_t; the arithmetic >>
+// of DM_ACT, which may be negative, stays signed; idx + n_ret wraps.
+
+#include <atomic>
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+
+#include "sync_burst.cuh"
+
+#if !defined(SR_PB) || !defined(SR_CMR)
+#error "the build defines SR_PB (prio bits) and SR_CMR (claim_max_rounds)"
+#endif
+
+namespace {
+
+using namespace sburst;
+using hash32::mix32;
+namespace cg = cooperative_groups;
+
+constexpr int BLOCK = 64;
+constexpr int WARPS = BLOCK / 32;
+// At most this many resident blocks an SM (two warps a scheduler): each
+// grid barrier waits for every block to arrive, so larger machines loop
+// over their nodes rather than add blocks.
+constexpr int MAX_BLOCKS_PER_SM = 4;
+constexpr int PB = SR_PB;                  // prio bits
+constexpr uint32_t PMASK = (1u << PB) - 1u;
+constexpr int PSHIFT = PB / 2 > 1 ? PB / 2 : 1;
+constexpr int CMR = SR_CMR;                // sync_engine.claim_max_rounds
+constexpr int DM_STATE = 0, DM_COUNT = 1, DM_OWNER = 2, DM_MEM = 3,
+              DM_ACT = 4, DM_REQ = 5, DM_CLAIM = 6, DM_COLS = 7;
+constexpr int D_EM = 0, D_S = 1, D_U = 2;  // DirState
+constexpr int ACT_NONE = 0, ACT_KILL = 1, ACT_DOWNGRADE = 2,
+              ACT_PROMOTE = 3;
+constexpr int N_METRICS = 11;              // sync_engine.METRIC_FIELDS
+// metric deltas, in METRIC_FIELDS order after `rounds`
+constexpr int M_RET = 0, M_RH = 1, M_WH = 2, M_RD = 3, M_WR = 4, M_UP = 5,
+              M_CONF = 6, M_EV = 7, M_KILL = 8, M_PROMO = 9, N_DELTAS = 10;
+static_assert(PB >= 1 && PB <= 30, "prio bits in [1, 30]");
+
+// Per-node scratch: an int32 [R_ROWS, n] plane, row r of node i at
+// r * n + i.
+constexpr int R_OA = 0;      // stopped instruction: op << 28 | addr
+constexpr int R_VAL = 1;     // its value
+constexpr int R_LADDR = 2;   // tag of its line (round start)
+constexpr int R_LVAL = 3;    // the line's value after the burst
+constexpr int R_BITS = 4;    // d | flags (B_*) | line state << 24
+constexpr int R_FILL = 5;    // fill state of a winner, else -1
+constexpr int R_FILLV = 6;   // fill value
+constexpr int R_ROWS = 7;
+constexpr int B_TXN = 1 << 16, B_VICT = 1 << 17, B_RD = 1 << 18,
+              B_WR = 1 << 19, B_UP = 1 << 20;
+static_assert(H < (1 << 16), "drain_depth fits 16 bits");
+
+struct Args {
+  const int* ca;       // [n, C] round-start cache
+  const int* cv;
+  const int* cs;
+  const int* dm;       // [E, 7]
+  const int* idx;      // [n]
+  const int* cnt;      // [n] trace length
+  const int* round;    // 0-d
+  const int* seed;     // 0-d
+  const int* metrics;  // [11]
+  int* ca_o;           // [n, C]
+  int* cv_o;
+  int* cs_o;
+  int* dm_o;           // [E, 7]
+  int* idx_o;          // [n]
+  int* round_o;        // 0-d
+  int* metrics_o;      // [11]
+  int* scratch;        // [R_ROWS, n]
+  int n;
+};
+
+// The round's claim keys (sync_engine._round_key_rs): a countdown in the
+// high bits, a reseeded bijective node-priority permutation in the low.
+struct Keys {
+  uint32_t h;
+  uint32_t countdown;  // max(claim_max_rounds - round, 0)
+
+  __device__ __forceinline__ int key(int node) const {
+    uint32_t x = (uint32_t)node;
+    x = (x * ((h << 1) | 1u) + (h >> 7)) & PMASK;
+    x ^= x >> PSHIFT;
+    x = (x * 0x9E3779B9u) & PMASK;
+    return (int)((countdown << PB) | x);
+  }
+};
+
+__device__ __forceinline__ Keys make_keys(int round, int seed) {
+  Keys k;
+  k.h = mix32(((uint32_t)round * 0x9E3779B9u) ^
+              ((uint32_t)seed * 0x85EBCA77u));
+  const int d = (int)((uint32_t)CMR - (uint32_t)round);
+  k.countdown = d > 0 ? (uint32_t)d : 0u;
+  return k;
+}
+
+__device__ __forceinline__ int clip(int v, int lo, int hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
+}
+
+// A node's C words of an [n, C] plane: 16-byte accesses when C is a
+// multiple of 4 (the wrapper checks that the planes are 16-byte
+// aligned). RO: the plane is an input, never written while the kernel
+// runs, and read through the read-only path.
+template <bool RO, typename T>
+__device__ __forceinline__ T ld(const T* p) {
+  if constexpr (RO) return __ldg(p);
+  else return *p;
+}
+
+template <bool RO>
+__device__ __forceinline__ void load_row(const int* plane, int node,
+                                         int (&r)[C]) {
+  const int* p = plane + (size_t)node * C;
+  if constexpr (C % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < C / 4; ++j) {
+      const int4 v = ld<RO>(reinterpret_cast<const int4*>(p) + j);
+      r[4 * j] = v.x;
+      r[4 * j + 1] = v.y;
+      r[4 * j + 2] = v.z;
+      r[4 * j + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < C; ++c) r[c] = ld<RO>(p + c);
+  }
+}
+
+__device__ __forceinline__ void store_row(int* plane, int node,
+                                          const int (&r)[C]) {
+  int* p = plane + (size_t)node * C;
+  if constexpr (C % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < C / 4; ++j)
+      reinterpret_cast<int4*>(p)[j] =
+          make_int4(r[4 * j], r[4 * j + 1], r[4 * j + 2], r[4 * j + 3]);
+  } else {
+#pragma unroll
+    for (int c = 0; c < C; ++c) p[c] = r[c];
+  }
+}
+
+// P0: dm -> dm_out over the whole grid, 16-byte words (the wrapper
+// checks the alignment), a batch of loads in flight before any store.
+__device__ __forceinline__ void copy_dm(const Args& a, size_t words,
+                                        int first, int stride) {
+  const size_t nvec = words / 4;
+  const int4* src = reinterpret_cast<const int4*>(a.dm);
+  int4* dst = reinterpret_cast<int4*>(a.dm_o);
+  constexpr int VB = 8;   // 16-byte loads in flight a thread
+#pragma unroll 1
+  for (size_t v0 = first; v0 < nvec; v0 += (size_t)VB * stride) {
+    int4 w[VB];
+#pragma unroll
+    for (int u = 0; u < VB; ++u) {
+      const size_t v = v0 + (size_t)u * stride;
+      if (v < nvec) w[u] = __ldg(src + v);
+    }
+#pragma unroll
+    for (int u = 0; u < VB; ++u) {
+      const size_t v = v0 + (size_t)u * stride;
+      if (v < nvec) dst[v] = w[u];
+    }
+  }
+#pragma unroll 1
+  for (size_t j = 4 * nvec + first; j < words; j += stride)
+    a.dm_o[j] = __ldg(a.dm + j);
+}
+
+// P1 for one node: burst, classification, claims.
+__device__ __forceinline__ void phase_claim(const Args& a, const Keys& k,
+                                            int node, int E,
+                                            int (&acc)[N_DELTAS]) {
+  const int n = a.n;
+  int ca[C], cs0[C], cv[C], cs[C];
+  load_row<true>(a.ca, node, ca);
+  load_row<true>(a.cv, node, cv);
+  load_row<true>(a.cs, node, cs0);
+#pragma unroll
+  for (int c = 0; c < C; ++c) cs[c] = cs0[c];
+  const Burst b = burst(node, n, __ldg(a.idx + node), __ldg(a.cnt + node),
+                        ca, cs0, cv, cs);
+  store_row(a.cv_o, node, cv);
+  store_row(a.cs_o, node, cs);
+  acc[M_RH] += b.rh;
+  acc[M_WH] += b.wh;
+
+  // the stopped instruction against its line after the burst
+  const int op = b.oa >> 28, addr = b.oa & 0x0FFFFFFF;
+  const int ci = cache_index(addr);
+  int l_addr = ca[0], l_val = cv[0], l_state = cs[0];
+#pragma unroll
+  for (int c = 1; c < C; ++c) {
+    l_addr = ci == c ? ca[c] : l_addr;
+    l_val = ci == c ? cv[c] : l_val;
+    l_state = ci == c ? cs[c] : l_state;
+  }
+  const bool tag_ok = l_addr == addr && l_state != INV;
+  const bool upg = b.live && op == OP_WRITE && tag_ok && l_state == SHD;
+  const bool rd_miss = b.live && op == OP_READ && !tag_ok;
+  const bool wr_miss = b.live && op == OP_WRITE && !tag_ok;
+  const bool txn = rd_miss || wr_miss || upg;
+  // (a leftover hit at the stop position waits for the next round)
+  const bool victim = txn && !tag_ok && l_state != INV && l_addr != addr;
+  if (txn) {
+    const int key = k.key(node);
+    atomicMin(a.dm_o + (size_t)clip(addr, 0, E - 1) * DM_COLS + DM_CLAIM,
+              key);
+    if (victim)
+      atomicMin(a.dm_o + (size_t)clip(l_addr, 0, E - 1) * DM_COLS + DM_CLAIM,
+                key);
+  }
+  int* sc = a.scratch;
+  sc[R_OA * n + node] = b.oa;
+  sc[R_VAL * n + node] = b.val;
+  sc[R_LADDR * n + node] = l_addr;
+  sc[R_LVAL * n + node] = l_val;
+  sc[R_BITS * n + node] = b.d | (txn ? B_TXN : 0) | (victim ? B_VICT : 0) |
+                          (rd_miss ? B_RD : 0) | (wr_miss ? B_WR : 0) |
+                          (upg ? B_UP : 0) | (l_state << 24);
+}
+
+// P2 for one node: verdict, outcomes, commit.
+__device__ __forceinline__ void phase_commit(const Args& a, const Keys& k,
+                                             int round, int node, int E,
+                                             int (&acc)[N_DELTAS]) {
+  const int n = a.n;
+  const int* sc = a.scratch;
+  const int bits = sc[R_BITS * n + node];
+  const int d = bits & 0xFFFF;
+  const bool txn = bits & B_TXN, victim = bits & B_VICT;
+  const int addr = sc[R_OA * n + node] & 0x0FFFFFFF;
+  const int l_addr = sc[R_LADDR * n + node];
+  int* r1 = a.dm_o + (size_t)clip(addr, 0, E - 1) * DM_COLS;
+  int* r2 = a.dm_o + (size_t)clip(l_addr, 0, E - 1) * DM_COLS;
+  const int key = k.key(node);
+  bool win = false;
+  if (txn) {
+    win = r1[DM_CLAIM] == key;
+    if (win && victim) win = r2[DM_CLAIM] == key;
+  }
+  int fill = -1, fill_val = 0;
+  if (win) {
+    const bool rd_w = bits & B_RD, wr_w = bits & B_WR, up_w = bits & B_UP;
+    const int ci = cache_index(addr);
+    const int d1s = r1[DM_STATE], d1c = r1[DM_COUNT], d1o = r1[DM_OWNER],
+              d1m = r1[DM_MEM];
+    const bool d_u = d1s == D_U, d_em = d1s == D_EM;
+    // the EM owner's copy after its burst: same-round local writes by
+    // the owner are visible (hits order before transactions)
+    const int val_o = a.cv_o[(size_t)clip(d1o, 0, n - 1) * C + ci];
+    const bool wlike = wr_w || up_w;
+    const bool excl = wlike || (rd_w && d_u);
+    const int rtag = (int)((uint32_t)round << 2);
+    const int row1[DM_COLS] = {
+        excl ? D_EM : D_S,
+        excl ? 1 : (rd_w && d_em ? 2 : d1c + 1),
+        excl ? node : d1o,
+        ((rd_w || wr_w) && d_em) ? val_o : d1m,
+        rtag | (wlike ? ACT_KILL : (rd_w && d_em ? ACT_DOWNGRADE : ACT_NONE)),
+        node, key};
+#pragma unroll
+    for (int j = 0; j < DM_COLS; ++j) r1[j] = row1[j];
+    if (victim) {
+      // the victim entry (EVICT_SHARED / EVICT_MODIFIED semantics)
+      const int l_state = bits >> 24;
+      const bool ev_mod = l_state == MOD;
+      const int n2c = ev_mod ? 0 : r2[DM_COUNT] - 1;
+      const int row2[DM_COLS] = {
+          n2c == 0 ? D_U : (n2c == 1 ? D_EM : D_S), n2c,
+          r2[DM_OWNER],     // updated by the promoted line's own write
+          ev_mod ? sc[R_LVAL * n + node] : r2[DM_MEM],
+          rtag | (!ev_mod && n2c == 1 ? ACT_PROMOTE : ACT_NONE), node, key};
+#pragma unroll
+      for (int j = 0; j < DM_COLS; ++j) r2[j] = row2[j];
+      acc[M_EV] += 1;
+    }
+    fill = rd_w ? (d_u ? EXC : SHD) : MOD;
+    fill_val = rd_w ? (d_em ? val_o : d1m) : sc[R_VAL * n + node];
+    acc[M_RD] += rd_w ? 1 : 0;
+    acc[M_WR] += wr_w ? 1 : 0;
+    acc[M_UP] += up_w ? 1 : 0;
+  }
+  acc[M_CONF] += (txn && !win) ? 1 : 0;
+  const int n_ret = d + (win ? 1 : 0);
+  acc[M_RET] += n_ret;
+  a.idx_o[node] = (int)((uint32_t)__ldg(a.idx + node) + (uint32_t)n_ret);
+  a.scratch[R_FILL * n + node] = fill;
+  a.scratch[R_FILLV * n + node] = fill_val;
+}
+
+// P3 for one node: fan-out over its lines, its fill, its cache rows out.
+__device__ __forceinline__ void phase_fanout(const Args& a, int round,
+                                             int node, int E,
+                                             int (&acc)[N_DELTAS]) {
+  const int n = a.n;
+  int ca[C], cv[C], cs[C];
+  load_row<true>(a.ca, node, ca);
+  load_row<false>(a.cv_o, node, cv);
+  load_row<false>(a.cs_o, node, cs);
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    if (cs[c] == INV) continue;
+    int* row = a.dm_o + (size_t)clip(ca[c], 0, E - 1) * DM_COLS;
+    const int act = row[DM_ACT];
+    if (row[DM_REQ] == node || (act >> 2) != round) continue;
+    const int code = act & 3;
+    if (code == ACT_KILL) {
+      cs[c] = INV;
+      acc[M_KILL] += 1;
+    } else if (code == ACT_DOWNGRADE) {
+      cs[c] = SHD;
+    } else if (code == ACT_PROMOTE) {
+      cs[c] = EXC;
+      acc[M_PROMO] += 1;
+      row[DM_OWNER] = node;
+    }
+  }
+  const int fill = a.scratch[R_FILL * n + node];
+  if (fill >= 0) {
+    const int addr = a.scratch[R_OA * n + node] & 0x0FFFFFFF;
+    const int ci = cache_index(addr);
+    const int fill_val = a.scratch[R_FILLV * n + node];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      ca[c] = ci == c ? addr : ca[c];
+      cv[c] = ci == c ? fill_val : cv[c];
+      cs[c] = ci == c ? fill : cs[c];
+    }
+  }
+  store_row(a.ca_o, node, ca);
+  store_row(a.cv_o, node, cv);
+  store_row(a.cs_o, node, cs);
+}
+
+__global__ void __launch_bounds__(BLOCK) sync_round_kernel(Args a) {
+  cg::grid_group grid = cg::this_grid();
+  const int n = a.n, E = n << SW_BLOCK_BITS;
+  const int first = blockIdx.x * BLOCK + threadIdx.x;
+  const int stride = gridDim.x * BLOCK;
+  const int round = __ldg(a.round);
+  const Keys k = make_keys(round, __ldg(a.seed));
+  int acc[N_DELTAS];
+#pragma unroll
+  for (int j = 0; j < N_DELTAS; ++j) acc[j] = 0;
+
+  copy_dm(a, (size_t)E * DM_COLS, first, stride);
+  if (blockIdx.x == 0 && threadIdx.x < N_METRICS)
+    a.metrics_o[threadIdx.x] =
+        (int)((uint32_t)__ldg(a.metrics + threadIdx.x) +
+              (threadIdx.x == 0 ? 1u : 0u));
+  if (first == 0) *a.round_o = (int)((uint32_t)round + 1u);
+  grid.sync();
+#pragma unroll 1
+  for (int node = first; node < n; node += stride)
+    phase_claim(a, k, node, E, acc);
+  grid.sync();
+#pragma unroll 1
+  for (int node = first; node < n; node += stride)
+    phase_commit(a, k, round, node, E, acc);
+  grid.sync();
+#pragma unroll 1
+  for (int node = first; node < n; node += stride)
+    phase_fanout(a, round, node, E, acc);
+
+  // the block's metric deltas: warp sums, then one atomicAdd a counter
+  __shared__ int part[WARPS][N_DELTAS];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int j = 0; j < N_DELTAS; ++j) {
+    int v = acc[j];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xFFFFFFFFu, v, o);
+    if (lane == 0) part[warp][j] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < N_DELTAS) {
+    int s = 0;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) s += part[w][threadIdx.x];
+    if (s != 0) atomicAdd(a.metrics_o + 1 + threadIdx.x, s);
+  }
+}
+
+// Dynamic shared memory a block: none (the block's metric partials are
+// a static array). The occupancy query and the launch both pass this.
+constexpr size_t SMEM_BYTES = 0;
+constexpr int MAX_DEVICES = 64;
+// blocks that can be resident at once on each device, 0 until asked
+std::atomic<int> resident_cache[MAX_DEVICES];
+
+// Blocks that can be resident at once on the current device (at most
+// MAX_BLOCKS_PER_SM an SM), queried once a device and then cached: the
+// grid does not change between rounds.
+int resident_blocks(int* out) {
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  const bool cached = dev >= 0 && dev < MAX_DEVICES;
+  if (cached) {
+    const int r = resident_cache[dev].load(std::memory_order_relaxed);
+    if (r > 0) {
+      *out = r;
+      return 0;
+    }
+  }
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, sync_round_kernel, BLOCK, SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  if (!coop) return (int)cudaErrorNotSupported;
+  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  if (per_sm > MAX_BLOCKS_PER_SM) per_sm = MAX_BLOCKS_PER_SM;
+  *out = per_sm * sms;
+  if (cached) resident_cache[dev].store(*out, std::memory_order_relaxed);
+  return 0;
+}
+
+// Blocks of the launch for n nodes: one node a thread while the nodes
+// fit the blocks that can be resident at once, else all of those.
+int grid_for(int n, int* grid) {
+  int resident = 0;
+  const int err = resident_blocks(&resident);
+  if (err) return err;
+  const int want = (n + BLOCK - 1) / BLOCK;
+  *grid = want < resident ? want : resident;
+  return 0;
+}
+
+}  // namespace
+
+// Plain C entry points (bound with ctypes).
+extern "C" {
+
+// int32 elements of the scratch buffer the kernel needs for n nodes
+long long sync_round_scratch_ints(int n) { return (long long)R_ROWS * n; }
+
+// dynamic shared memory a block that the occupancy query and the
+// launch pass
+int sync_round_smem_bytes() { return (int)SMEM_BYTES; }
+
+// the kernel's static shared memory a block, from the loaded image
+// (cudaFuncGetAttributes), or -(CUDA error)
+int sync_round_static_smem_bytes() {
+  cudaFuncAttributes attr;
+  const cudaError_t e = cudaFuncGetAttributes(&attr, sync_round_kernel);
+  return e == cudaSuccess ? (int)attr.sharedSizeBytes : -(int)e;
+}
+
+// the grid the launch for n nodes uses (>= 1), or -(CUDA error)
+int sync_round_grid(int n) {
+  int grid = 0;
+  const int err = grid_for(n > 0 ? n : 1, &grid);
+  return err ? -err : grid;
+}
+
+// One round, launched cooperatively on `stream` without synchronising;
+// returns the launch's CUDA error (0 on success). n >= 1.
+int sync_round(const int* ca, const int* cv, const int* cs, const int* dm,
+               const int* idx, const int* cnt, const int* round,
+               const int* seed, const int* metrics, int* ca_o, int* cv_o,
+               int* cs_o, int* dm_o, int* idx_o, int* round_o,
+               int* metrics_o, int* scratch, int n, void* stream) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  int grid = 0;
+  const int err = grid_for(n, &grid);
+  if (err) return err;
+  Args a = {ca,   cv,   cs,   dm,    idx,     cnt,       round,   seed, metrics,
+            ca_o, cv_o, cs_o, dm_o, idx_o, round_o, metrics_o, scratch, n};
+  void* args[] = {&a};
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      (const void*)sync_round_kernel, dim3(grid), dim3(BLOCK), args,
+      SMEM_BYTES, static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -7,7 +7,11 @@ return of ``pallas_burst.burst``: from the round-start cache and the
 cursors it gives each node's burst length ``d``, its read- and write-hit
 counts, the stopped instruction (``oa``, ``val``, ``live``) and the
 cache values and states after the burst's writes. The procedural
-instruction hash runs inside the kernel; no window tensor is built.
+instruction hash runs inside the kernel; no window tensor is built. The
+burst body is the device function of ``csrc/sync_burst.cuh``, which the
+fused txn_width 1 round (``ops/sync_round_kernel``, the main path) runs
+too; ``sync_engine._round_step_single(use_kernel=True)`` is the route
+that still launches this kernel.
 
 For a CUDA tensor ``burst`` launches the kernel on the current stream or
 raises; it never falls back. For a CPU tensor it runs ``plain_burst``,
@@ -66,7 +70,8 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 
 LIBRARY = kernel_build.Library("sync_burst", "sync_burst.cu",
-                               ("hash32.cuh",), defines, _bind,
+                               ("sync_burst.cuh", "hash32.cuh"), defines,
+                               _bind,
                                {r"sync_burst_kernel": "burst"})
 
 

@@ -18,12 +18,16 @@ Three rounds, dispatched by ``round_step``:
   instructions with up to ``txn_width`` transactions per node
   (``_round_step_multi``).
 
-Under ``cfg.pallas_burst`` on a procedural workload the node-local part
-of the last two runs as CUDA kernels (``ops/sync_burst_kernel``,
-``ops/sync_window_kernel``), as the JAX package routes it through its
-Pallas kernels. The claim scatter-min, the row gather, the commit
-scatter and the fan-out are plain tensor code either way, held to the
-JAX index semantics by ``deep_engine.TorchIndexOps``.
+Under ``cfg.pallas_burst`` on a procedural workload the txn_width 1
+round runs as one CUDA kernel (``ops/sync_round_kernel``: burst, claim,
+commit, fan-out and counters in one launch), and the node-local folds of
+the txn_width > 1 round run as CUDA kernels (``ops/sync_window_kernel``),
+where the JAX package routes the node-local part of both through its
+Pallas kernels. ``_round_step_single(use_kernel=True)`` keeps the burst
+alone as a kernel (``ops/sync_burst_kernel``). Outside the fused round
+the claim scatter-min, the row gather, the commit scatter and the
+fan-out are plain tensor code, held to the JAX index semantics by
+``deep_engine.TorchIndexOps``.
 
 State is a dataclass of int32 tensors on one device. The runners are
 Python loops over rounds: ``run_sync_to_quiescence`` reads the
@@ -73,36 +77,40 @@ STATE_FIELDS = ("cache_addr", "cache_val", "cache_state", "dm",
                 "round")
 
 
-@dataclasses.dataclass
 class SyncMetrics:
-    """Run counters, each a 0-d int32 tensor (JAX SyncMetrics fields)."""
+    """Run counters (the JAX SyncMetrics fields), held in one [11] int32
+    buffer in METRIC_FIELDS order; each field reads as a 0-d view of it.
+    A round updates all of them with one add, or inside the fused round
+    kernel, not with a launch per field."""
 
-    rounds: torch.Tensor
-    instrs_retired: torch.Tensor
-    read_hits: torch.Tensor
-    write_hits: torch.Tensor
-    read_misses: torch.Tensor
-    write_misses: torch.Tensor
-    upgrades: torch.Tensor
-    conflicts: torch.Tensor
-    evictions: torch.Tensor
-    invalidations: torch.Tensor
-    promotions: torch.Tensor
+    __slots__ = ("_buf",)
+
+    def __init__(self, buf: torch.Tensor):
+        if buf.shape != (len(METRIC_FIELDS),) or buf.dtype != torch.int32:
+            raise ValueError(f"SyncMetrics takes an int32 "
+                             f"[{len(METRIC_FIELDS)}] buffer, not "
+                             f"{buf.dtype} {tuple(buf.shape)}")
+        self._buf = buf
 
     @classmethod
     def zeros(cls, device) -> "SyncMetrics":
-        return cls(**{f: torch.zeros((), dtype=torch.int32, device=device)
-                      for f in METRIC_FIELDS})
+        return cls(torch.zeros((len(METRIC_FIELDS),), dtype=torch.int32,
+                               device=device))
 
-    def replace(self, **kw) -> "SyncMetrics":
-        return dataclasses.replace(self, **kw)
+    def buffer(self) -> torch.Tensor:
+        """The [11] int32 buffer the fields are views of."""
+        return self._buf
 
     def after_round(self, deltas: torch.Tensor) -> "SyncMetrics":
         """The counters one round later: ``rounds`` + 1 and the other
         ten fields, in METRIC_FIELDS order, + ``deltas`` [10]."""
-        return SyncMetrics(self.rounds + 1, *(
-            getattr(self, f) + deltas[i]
-            for i, f in enumerate(METRIC_FIELDS[1:])))
+        step = torch.nn.functional.pad(deltas, (1, 0), value=1)
+        return SyncMetrics(self._buf + step)
+
+
+for _i, _f in enumerate(METRIC_FIELDS):
+    setattr(SyncMetrics, _f,
+            property(lambda self, i=_i: self._buf[i], doc=f"``{_f}`` (0-d)"))
 
 
 @dataclasses.dataclass
@@ -1088,11 +1096,14 @@ def round_step(cfg: SystemConfig, st: SyncState,
     holds, and ``deep_engine.round_step_deep`` otherwise. The others
     run ``_round_step_single`` (txn_width 1) or ``_round_step_multi``;
     under ``cfg.pallas_burst`` on a procedural workload without event
-    tracing, the burst phase of the first and the two window folds of
-    the second (``sync_window_kernel.round_step_multi_kernel``) go
-    through the CUDA kernels' wrappers. Unlike the TPU kernels these
-    need no tiling of the node axis, so every N takes that route; the
-    results are bit-identical either way.
+    tracing they go through the CUDA kernels' wrappers instead: the
+    txn_width 1 round as one kernel
+    (``sync_round_kernel.round_step_fused``, where
+    ``sync_round_kernel.supported(cfg)`` holds; else the burst kernel
+    inside ``_round_step_single``), the two window folds of the other
+    (``sync_window_kernel.round_step_multi_kernel``). Unlike the TPU
+    kernels these need no tiling of the node axis, so every N takes
+    that route; the results are bit-identical either way.
 
     ``fold_impl="plain"`` runs the plain version of whichever kernel
     the route would launch, on any device. ``with_events`` also returns
@@ -1120,6 +1131,12 @@ def round_step(cfg: SystemConfig, st: SyncState,
             sync_burst_kernel)
         use_kernel = sync_burst_kernel.supported(cfg)
     if cfg.txn_width == 1:
+        if use_kernel:
+            from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
+                sync_round_kernel)
+            if sync_round_kernel.supported(cfg):
+                return sync_round_kernel.round_step_fused(cfg, st,
+                                                          fold_impl)
         return _round_step_single(cfg, st, with_events,
                                   use_kernel=use_kernel,
                                   fold_impl=fold_impl)
