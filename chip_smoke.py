@@ -9,9 +9,10 @@ Phases (each prints its own line; any failure exits non-zero):
 2. build: the deep-window fold kernel (csrc/deep_fold.cu), the fused
    round kernel (csrc/deep_round.cu), the sync window engine's
    window/replay and burst kernels (csrc/sync_window.cu,
-   csrc/sync_burst.cu) and its fused txn_width 1 round
-   (csrc/sync_round.cu) for every config used below, one nvcc per
-   library, all started together; ptxas registers and spill bytes;
+   csrc/sync_burst.cu) and its fused txn_width 1 and txn_width >= 2
+   rounds (csrc/sync_round.cu, csrc/sync_multi_round.cu) for every
+   config used below, one nvcc per library, all started together;
+   ptxas registers and spill bytes;
 3. kernel vs plain: each fold mode (pre, flags, replay) and the round
    kernel on inputs taken mid-run (after 8 rounds of deep@4096), kernel
    against its plain PyTorch version on the same tensors, bit for bit;
@@ -40,21 +41,25 @@ Phases (each prints its own line; any failure exits non-zero):
    sync@4096 (txn_width 3 / drain_depth 4, and txn_width 1 /
    drain_depth 16) and in a contended 256-node config (locality 0.3:
    releases, reacquires, dependent hits, truncation); the fused
-   txn_width 1 round (csrc/sync_round.cu) against plain_round at
-   sync@4096, in the contended config and at 65536 nodes (its grid
-   capped), its time, bound and ptxas figures; 256 nodes x 64 rounds
-   through the kernels on the card against the plain rounds on the CPU;
-   then ``TransactionalSystem.procedural`` at the sync bench defaults
-   (4096 nodes x 4096 instructions, chunk 64) to quiescence, at
-   txn_width 3 through the kernels and through the plain rounds (window
-   == replay == rounds), and at txn_width 1 on three routes, the fused
-   round (sync_round == rounds, sync_burst 0), the burst kernel inside
-   the eager round (sync_burst == rounds) and the plain rounds, each
-   with a torch.profiler window of 32 rounds (device launches, busy ms
-   and idle share a round): equal rounds and states, every instruction
-   retired; 4 rounds at 1048576 nodes (txn_width 2), kernels against
-   plain rounds; 8 rounds of the 4096-node txn_width 3 machine on
-   stored traces made from a seed, card against CPU;
+   txn_width 1 round (csrc/sync_round.cu) and the fused txn_width >= 2
+   round (csrc/sync_multi_round.cu) against their plain_round at
+   sync@4096 (txn_width 1 / drain_depth 16, txn_width 3 / drain_depth
+   4), in the contended config and at 65536 nodes (the grid capped),
+   their time, bound, ptxas and shared-memory figures; 256 nodes x 64
+   rounds through the kernels on the card against the plain rounds on
+   the CPU; then ``TransactionalSystem.procedural`` at the sync bench
+   defaults (4096 nodes x 4096 instructions, chunk 64) to quiescence, at
+   txn_width 3 on three routes, the fused round (sync_multi_round ==
+   rounds, window and replay 0), the window kernels around the eager
+   round middle (window == replay == rounds) and the plain rounds, and
+   at txn_width 1 on three routes, the fused round (sync_round ==
+   rounds, sync_burst 0), the burst kernel inside the eager round
+   (sync_burst == rounds) and the plain rounds, each with a
+   torch.profiler window (device launches, busy ms and idle share a
+   round): equal rounds and states, every instruction retired; 4 rounds
+   at 1048576 nodes (txn_width 2) through the fused round against the
+   plain rounds; 8 rounds of the 4096-node txn_width 3 machine on stored
+   traces made from a seed, card against CPU;
 7. the message-level engine (async) and its routed delivery: the ring
    exchange kernel (csrc/ring_exchange.cu) against its plain version on
    the outbox lanes of the cycle 64 cycles into async@4096 (D = 4 and
@@ -111,6 +116,10 @@ TPU_KERNELS = {
     # the fused txn_width 1 round replaces the same TPU kernel with the
     # eager round around it
     "sync_round": "ue22cs343bb1_openmp_assignment_tpu/ops/pallas_burst.py:42",
+    # the fused txn_width >= 2 round replaces the window (:161) and replay
+    # (:206) kernels with the eager round around them
+    "sync_multi_round":
+        "ue22cs343bb1_openmp_assignment_tpu/ops/pallas_window.py:161",
     "ring": "ue22cs343bb1_openmp_assignment_tpu/parallel/rdma_comm.py:105",
 }
 CSRC = "ue22cs343bb1_openmp_assignment_tpu_torch/csrc/"
@@ -120,9 +129,11 @@ SOURCES = {"pre": CSRC + "deep_fold.cu", "flags": CSRC + "deep_fold.cu",
            "sync_replay": CSRC + "sync_window.cu",
            "sync_burst": CSRC + "sync_burst.cu",
            "sync_round": CSRC + "sync_round.cu",
+           "sync_multi_round": CSRC + "sync_multi_round.cu",
            "ring": CSRC + "ring_exchange.cu"}
 FOLD_MODES = ("pre", "flags", "replay")
-SYNC_KERNELS = ("sync_window", "sync_replay", "sync_burst", "sync_round")
+SYNC_KERNELS = ("sync_window", "sync_replay", "sync_burst", "sync_round",
+                "sync_multi_round")
 #: The recorded work of the deep rows (the three fold modes and the
 #: round), in integer operations a node: what ``sass_ops`` counted on
 #: the SASS of the one-thread-per-node kernels that the shared-memory
@@ -195,12 +206,15 @@ def event_ms(fn, reps: int) -> float:
 def kernel_ms(fn, kernel: str = "") -> float:
     """Median device time of the launches of ``kernel`` in fn() (every
     launch when ``kernel`` is empty). The profiler now and then returns
-    a window without the card's events; such a window is taken again, at
-    most twice, before the phase fails."""
+    a window without the card's events (it can miss the first
+    milliseconds of a window, which may be all of a short one); such a
+    window is taken again, at most twice, each time with fn() run four
+    times as often, before the phase fails."""
     from ue22cs343bb1_openmp_assignment_tpu_torch.bench import device_events
     fn()
-    for _ in range(3):
-        events, _ = device_events(fn)
+    for attempt in range(3):
+        events, _ = device_events(
+            lambda: [fn() for _ in range(4 ** attempt)])
         times = [us for name, us in events if kernel in name]
         if times:
             return statistics.median(times) / 1e3
@@ -772,76 +786,131 @@ def phase_sync_kernels() -> dict:
     return rows
 
 
-#: more nodes than the fused round's grid has threads: its node loops go
-#: round more than once
+#: more nodes than the fused rounds' grids have threads: their node loops
+#: go round more than once
 SYNC_ROUND_BIG = 65536
 
 
+def _fused_vs_plain(name: str, mod, txn_width: int):
+    """A fused sync round kernel (module ``mod``, C entry points named
+    after ``name``) against its plain_round, bit for bit in every output,
+    on inputs taken mid-run at sync@4096, in the contended config and at
+    SYNC_ROUND_BIG nodes (the grid capped); returns the sync@4096 (config,
+    state, arguments, plain outputs)."""
+    N = BENCH["num_nodes"]
+    for cfg, warm in ((sync_cfg(N, txn_width), 8),
+                      (sync_contended_cfg(txn_width), 6),
+                      (sync_cfg(SYNC_ROUND_BIG, txn_width), 4)):
+        n = cfg.num_nodes
+        st = _sync_mid_run(cfg, warm)
+        args = mod.round_inputs(cfg, st)
+        grid = getattr(mod.LIBRARY.load(cfg), f"{name}_grid")
+        if grid(n) <= 0:
+            raise SmokeFailure(f"{name}@{n}: no grid (CUDA error "
+                               f"{-grid(n)})")
+        if n == SYNC_ROUND_BIG and grid(n) != grid(2 * n):
+            raise SmokeFailure(f"{name}@{n}: grid {grid(n)} is not capped")
+        want = mod.plain_round(*args)
+        k_out = flat_outputs(mod.fused_round(*args))
+        compare(f"{name}@{n}", k_out, flat_outputs(want))
+        say("kernel", f"{name} at {n} nodes (txn_width {txn_width}, "
+            f"drain_depth {cfg.drain_depth}, locality "
+            f"{cfg.proc_local_permille / 1000}, {warm} rounds in): "
+            f"{len(k_out)} outputs bit-identical to plain_round; grid "
+            f"{grid(n)} blocks of 64 for {n} nodes; retired "
+            f"{int(want[6][1] - args[9][1])}, conflicts "
+            f"{int(want[6][7] - args[9][7])}, evictions "
+            f"{int(want[6][8] - args[9][8])}")
+        if n == N:
+            bench = (cfg, st, args, want)
+    return bench
+
+
 def phase_sync_round_kernel() -> dict:
-    """The fused txn_width 1 round against plain_round, bit for bit in
-    every output, on inputs taken mid-run at sync@4096 (drain_depth 16),
-    in the contended config and at 65,536 nodes (the grid capped);
-    returns its row, timed and bounded at sync@4096."""
+    """The fused txn_width 1 round against plain_round (drain_depth 16)
+    as ``_fused_vs_plain`` says; returns its row, timed and bounded at
+    sync@4096."""
     import torch
     from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
         sync_burst_kernel as sbk)
     from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
         sync_round_kernel as srk)
-    N = BENCH["num_nodes"]
-    for cfg, warm in ((sync_cfg(N, 1), 8), (sync_contended_cfg(1), 6),
-                      (sync_cfg(SYNC_ROUND_BIG, 1), 4)):
-        n = cfg.num_nodes
-        st = _sync_mid_run(cfg, warm)
-        args = srk.round_inputs(cfg, st)
-        lib = srk.LIBRARY.load(cfg)
-        grid = lib.sync_round_grid(n)
-        if grid <= 0:
-            raise SmokeFailure(f"sync_round@{n}: no grid (CUDA error "
-                               f"{-grid})")
-        if n == SYNC_ROUND_BIG and grid != lib.sync_round_grid(2 * n):
-            raise SmokeFailure(f"sync_round@{n}: grid {grid} is not capped")
-        want = srk.plain_round(*args)
-        k_out = flat_outputs(srk.fused_round(*args))
-        compare(f"sync_round@{n}", k_out, flat_outputs(want))
-        say("kernel", f"sync round at {n} nodes (locality "
-            f"{cfg.proc_local_permille / 1000}, {warm} rounds in): "
-            f"{len(k_out)} outputs bit-identical to plain_round; grid "
-            f"{grid} blocks of 64 for {n} nodes; retired "
-            f"{int(want[6][1] - args[9][1])}, conflicts "
-            f"{int(want[6][7] - args[9][7])}")
-        if n == N:
-            bench_args, bench_st = args, st
-    cfg, args, st = sync_cfg(N, 1), bench_args, bench_st
-    ms = kernel_ms(lambda: [srk.fused_round(*args) for _ in range(20)],
-                   "sync_round_kernel")
+    cfg, st, args, _ = _fused_vs_plain("sync_round", srk, 1)
     plain_ms = event_ms(lambda: srk.plain_round(*args), 3)
     # the burst needs its d hits and the slot that stops it
     d = sbk.plain_burst(cfg, st.cache_addr, st.cache_val, st.cache_state,
                         st.idx, st.instr_count)[0]
-    steps = int((d + 1).sum())
-    count = sass_ops(kernel_sass(srk.LIBRARY, cfg), "sync_round_kernel", 1,
-                     1, barriers=3, block_barriers=1)
-    ops = count["per_step"][0] * steps + count["once"] * N
-    io_bytes = sum(srk.io_contract_bytes(cfg))
-    r = row("sync_round", "sync_round", ms, plain_ms, io_bytes, ops)
-    ptx = srk.LIBRARY.ptxas_summary(cfg).get("round", {})
-    lib = srk.LIBRARY.load(cfg)
-    static_smem = lib.sync_round_static_smem_bytes()
+    torch.cuda.synchronize()
+    return _fused_row("sync_round", srk, cfg, args,
+                      {"burst slots": int((d + 1).sum())}, plain_ms)
+
+
+def phase_sync_multi_round_kernel() -> dict:
+    """The fused txn_width >= 2 round against plain_round (txn_width 3,
+    drain_depth 4) as ``_fused_vs_plain`` says; returns its row, timed
+    and bounded at sync@4096."""
+    import torch
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
+        sync_multi_round_kernel as smk)
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
+        sync_window_kernel as swk)
+    cfg, st, args, want = _fused_vs_plain("sync_multi_round", smk, 3)
+    plain_ms = event_ms(lambda: smk.plain_round(*args), 3)
+    # the iterations this round's data needs of the kernel's three
+    # window-step loops: the pre-claim fold runs to the step that stops
+    # it (that step included), the probe scan over the steps before the
+    # stop (it ends early at an unsafe step, which this count does not
+    # see), the replay over the steps it retires
+    steps, _ = swk._plain_fold(cfg, *swk.round_inputs(cfg, st)[1:])
+    before_stop = sum((s["hit_ok"] | s["ok"]).to(torch.int64)
+                      for s in steps)
+    W = cfg.drain_depth + cfg.txn_width
+    loops = {"fold steps": int(torch.clamp(before_stop + 1, max=W).sum()),
+             "probe steps": int(before_stop.sum()),
+             "replay steps": int(want[6][1] - args[9][1])}
+    torch.cuda.synchronize()
+    return _fused_row("sync_multi_round", smk, cfg, args, loops, plain_ms)
+
+
+def _fused_row(name: str, mod, cfg, args, loops: dict,
+               plain_ms: float) -> dict:
+    """The row of a fused sync round kernel (module ``mod``, kernel and C
+    entry points named after ``name``) timed on ``args`` at ``cfg``: 20
+    launches under the profiler, the bound from its bytes and from the
+    integer instructions of its SASS (each loop nested in a node loop
+    counted for the iterations ``loops`` gives it, in address order, the
+    rest once a node), ptxas registers and spills, dynamic and static
+    shared memory read from the library."""
+    kname = f"{name}_kernel"
+    ms = kernel_ms(lambda: [mod.fused_round(*args) for _ in range(20)],
+                   kname)
+    count = sass_ops(kernel_sass(mod.LIBRARY, cfg), kname, 1, len(loops),
+                     barriers=3, block_barriers=1)
+    N = cfg.num_nodes
+    ops = (sum(per * n for per, n in zip(count["per_step"], loops.values()))
+           + count["once"] * N)
+    io_bytes = sum(mod.io_contract_bytes(cfg))
+    r = row(name, name, ms, plain_ms, io_bytes, ops)
+    ptx = next(iter(mod.LIBRARY.ptxas_summary(cfg).values()), {})
+    lib = mod.LIBRARY.load(cfg)
+    static_smem = getattr(lib, f"{name}_static_smem_bytes")()
     if static_smem < 0:
-        raise SmokeFailure(f"sync_round: cudaFuncGetAttributes failed "
-                           f"(CUDA error {-static_smem})")
+        raise SmokeFailure(f"{name}: cudaFuncGetAttributes failed (CUDA "
+                           f"error {-static_smem})")
     r.update(registers=ptx.get("registers"),
              spill_bytes=ptx.get("spill_stores", 0)
              + ptx.get("spill_loads", 0),
-             dynamic_smem_bytes=lib.sync_round_smem_bytes(),
+             dynamic_smem_bytes=getattr(lib, f"{name}_smem_bytes")(),
              static_smem_bytes=static_smem)
-    torch.cuda.synchronize()
-    say("kernel", f"sync_round: kernel {ms:.4f} ms, plain {plain_ms:.2f} "
-        f"ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}: {io_bytes} B, "
-        f"{ops} integer ops = {steps} steps x {count['per_step'][0]} + N x "
-        f"{count['once']}: {count}); ptxas {ptx}; "
+    say("kernel", f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
+        f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}: {io_bytes} B, "
+        f"{ops} integer ops = "
+        + " + ".join(f"{n} {what} x {per}" for per, (what, n)
+                     in zip(count["per_step"], loops.items()))
+        + f" + N x {count['once']}: {count}); ptxas {ptx}; "
         f"{r['dynamic_smem_bytes']} B of dynamic shared memory a block (the "
-        f"launch's), {static_smem} B static (cudaFuncGetAttributes)")
+        f"launch's), {static_smem} B static (cudaFuncGetAttributes); grid "
+        f"{getattr(lib, f'{name}_grid')(N)} blocks of 64")
     return r
 
 
@@ -889,50 +958,64 @@ def _stored_traces(cfg, seed: int):
             np.full((N,), T, np.int32))
 
 
-def _burst_route(cfg):
-    """``run`` for ``_drive``: the txn_width 1 rounds with the burst
-    kernel inside the eager round (``_round_step_single(use_kernel=
-    True)``), to quiescence as ``run_sync_to_quiescence`` runs them
-    (quiescence tested between chunk-round blocks)."""
-    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import sync_engine as se
-
+def _step_route(step):
+    """``run`` for ``_drive``: ``step`` round after round to quiescence,
+    as ``run_sync_to_quiescence`` runs them (quiescence tested between
+    chunk-round blocks)."""
     def run(sys0):
         st = sys0.state
         while not bool(st.quiescent()):
             for _ in range(BENCH["chunk"]):
-                st = se._round_step_single(cfg, st, use_kernel=True)
+                st = step(st)
         return dataclasses.replace(sys0, state=st)
     return run
 
 
-#: the profiler window of each txn_width 1 route, long enough that the
-#: kernel events the profiler misses near a window's edges do not matter
-#: (32 rounds of the fused route, about 6 ms under the profiler, showed
-#: about 0.7 of its one launch a round on an H100)
-PROFILE_ROUNDS = 128
+#: the profiler window of a fused sync route, long enough that the kernel
+#: events the profiler misses near a window's edges do not matter (32
+#: rounds of the fused txn_width 1 route, about 6 ms under the profiler,
+#: showed about 0.7 of its one launch a round on an H100); the eager and
+#: plain routes' rounds take milliseconds each, and their hundreds to
+#: thousands of launches a round make a long window slow to read back, so
+#: theirs is shorter
+PROFILE_ROUNDS = {"fused round": 128, "other": 16}
 
 
-def _sync_single_routes(rows: dict) -> None:
-    """sync@4096 x 4096 at txn_width 1 (drain_depth 16) to quiescence on
-    three routes, in one process: the fused round (one kernel a round,
-    the bench's route on a card), the burst kernel inside the eager
-    round, and the plain rounds. Each run's launch counts are set to 0
-    just before it and read just after; each route's torch.profiler
-    window of PROFILE_ROUNDS rounds (16 rounds in) gives its device
-    launches, busy ms and idle share a round, and how many launches of
-    the route's kernel the profiler saw."""
+def _sync_routes(rows: dict, txn_width: int) -> None:
+    """sync@4096 x 4096 to quiescence on three routes, in one process:
+    the fused round (one kernel a round, the bench's route on a card),
+    the eager round around the TPU kernels' counterparts (at txn_width
+    1 the burst kernel, ``_round_step_single(use_kernel=True)``; else the
+    window and replay kernels, ``round_step_multi_kernel``), and the
+    plain rounds. Each run's launch counts are set to 0 just before it
+    and read just after, and give its kernels' rows their launches; each
+    route's torch.profiler window (PROFILE_ROUNDS, 16 rounds in) gives
+    its device launches, busy ms and idle share a round, and how many
+    launches of the route's kernels the profiler saw."""
     from ue22cs343bb1_openmp_assignment_tpu_torch import bench, convert
     from ue22cs343bb1_openmp_assignment_tpu_torch.ops import sync_engine as se
-    N, length = BENCH["num_nodes"], BENCH["trace_len"]
-    fused, plain = sync_cfg(N, 1), sync_cfg(N, 1, kernels=False)
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
+        sync_window_kernel as swk)
+    N, length, K = BENCH["num_nodes"], BENCH["trace_len"], txn_width
+    fused, plain = sync_cfg(N, K), sync_cfg(N, K, kernels=False)
+    if K == 1:
+        eager, eager_kernels = "burst kernel", ("sync_burst",)
+
+        def eager_step(st):
+            return se._round_step_single(fused, st, use_kernel=True)
+    else:
+        eager, eager_kernels = "window kernels", ("sync_window",
+                                                  "sync_replay")
+
+        def eager_step(st):
+            return swk.round_step_multi_kernel(fused, st)
     routes = {
         "fused round": (fused, lambda s: s.run(chunk=BENCH["chunk"]),
-                        lambda st: se.round_step(fused, st), "sync_round"),
-        "burst kernel": (fused, _burst_route(fused),
-                         lambda st: se._round_step_single(
-                             fused, st, use_kernel=True), "sync_burst"),
+                        lambda st: se.round_step(fused, st),
+                        ("sync_round" if K == 1 else "sync_multi_round",)),
+        eager: (fused, _step_route(eager_step), eager_step, eager_kernels),
         "plain rounds": (plain, lambda s: s.run(chunk=BENCH["chunk"]),
-                         lambda st: se.round_step(plain, st), None)}
+                         lambda st: se.round_step(plain, st), ())}
     mid = se.run_rounds(plain, se.procedural_state(plain, length,
                                                    device="cuda"), 16)
     finals = {}
@@ -940,32 +1023,34 @@ def _sync_single_routes(rows: dict) -> None:
         done, wall, counts = _drive(cfg, run)
         m = done.metrics
         if not done.quiescent:
-            raise SmokeFailure(f"sync@{N} txn_width 1 ({route}) did not "
+            raise SmokeFailure(f"sync@{N} txn_width {K} ({route}) did not "
                                "reach quiescence")
         if m["instrs_retired"] != N * length:
             raise SmokeFailure(f"retired {m['instrs_retired']} of "
                                f"{N * length}")
         inv = done.check_invariants()
         for kernel, n in counts.items():
-            want = m["rounds"] if kernel == mine else 0
+            want = m["rounds"] if kernel in mine else 0
             if n != want:
                 raise SmokeFailure(
-                    f"sync txn_width 1 ({route}): {n} launches of the "
+                    f"sync txn_width {K} ({route}): {n} launches of the "
                     f"{kernel} kernel in {m['rounds']} rounds, expected "
                     f"{want}")
-        if mine:
-            rows[mine]["launches"] = counts[mine]
-        prof = bench.profile_steps(step, mid, PROFILE_ROUNDS)
-        calls = prof["kernel_calls_per_round"].get(mine, 0) * PROFILE_ROUNDS
-        seen = f" ({calls:.0f} of the {mine} kernel seen)" if mine else ""
+            if kernel in mine:
+                rows[kernel]["launches"] = n
+        rounds = PROFILE_ROUNDS.get(route, PROFILE_ROUNDS["other"])
+        prof = bench.profile_steps(step, mid, rounds)
+        seen = "".join(
+            f" ({prof['kernel_calls_per_round'].get(k, 0) * rounds:.0f}"
+            f" of the {k} kernel seen)" for k in mine)
         finals[route] = (m["rounds"], convert.to_numpy(done.state))
-        say("main", f"sync@{N} x {length}, txn_width 1, drain_depth "
+        say("main", f"sync@{N} x {length}, txn_width {K}, drain_depth "
             f"{cfg.drain_depth}, through the {route}: quiescent after "
             f"{m['rounds']} rounds, {m['instrs_retired'] / wall:.6g} "
             f"instrs/sec, {wall * 1e3 / m['rounds']:.4f} ms/round, wall "
             f"{wall:.2f} s, launches "
             f"{ {k: v for k, v in counts.items() if v} }, invariant {inv}; "
-            f"profile of {PROFILE_ROUNDS} rounds: "
+            f"profile of {rounds} rounds: "
             f"{prof['device_launches_per_round']:.2f} device launches"
             f"{seen}, "
             f"busy {prof['device_busy_ms_per_round']:.4f} ms, idle share "
@@ -973,81 +1058,44 @@ def _sync_single_routes(rows: dict) -> None:
             f"{prof['wall_ms_per_round']:.4f} ms/round under the profiler, "
             f"kernels {prof['kernel_ms_per_round']}")
     (r0, a) = finals["fused round"]
-    for route in ("burst kernel", "plain rounds"):
+    for route in (eager, "plain rounds"):
         r1, b = finals[route]
         bad = _leaves_differ(a, b)
         if r0 != r1 or bad:
-            raise SmokeFailure(f"sync txn_width 1: the fused round ({r0} "
+            raise SmokeFailure(f"sync txn_width {K}: the fused round ({r0} "
                                f"rounds) and the {route} ({r1}) end in "
                                f"different states (leaf {bad})")
-    say("main", f"sync txn_width 1: fused round, burst kernel and plain "
+    say("main", f"sync txn_width {K}: fused round, {eager} and plain "
         f"rounds, same {r0} rounds, every leaf equal")
 
 
 def phase_sync_main_path(rows: dict) -> None:
     from ue22cs343bb1_openmp_assignment_tpu_torch import convert
     from ue22cs343bb1_openmp_assignment_tpu_torch.ops import sync_engine as se
-    N, length = BENCH["num_nodes"], BENCH["trace_len"]
-    K, mine = 3, ("sync_window", "sync_replay")
-    finals = {}
-    for kernels in (True, False):
-        cfg = sync_cfg(N, K, kernels)
-        done, wall, counts = _drive(
-            cfg, lambda s: s.run(chunk=BENCH["chunk"]))
-        m = done.metrics
-        route = "kernels" if kernels else "plain rounds"
-        if not done.quiescent:
-            raise SmokeFailure(f"sync@{N} txn_width {K} ({route}) did "
-                               "not reach quiescence")
-        if m["instrs_retired"] != N * length:
-            raise SmokeFailure(f"retired {m['instrs_retired']} of "
-                               f"{N * length}")
-        inv = done.check_invariants()
-        for kernel, n in counts.items():
-            want = m["rounds"] if kernels and kernel in mine else 0
-            if n != want:
-                raise SmokeFailure(
-                    f"sync txn_width {K} ({route}): {n} launches of "
-                    f"the {kernel} kernel in {m['rounds']} rounds, "
-                    f"expected {want}")
-            if want:
-                rows[kernel]["launches"] = n
-        finals[kernels] = (m["rounds"], convert.to_numpy(done.state))
-        say("main", f"sync@{N} x {length}, txn_width {K}, drain_depth "
-            f"{cfg.drain_depth}, through the {route}: quiescent after "
-            f"{m['rounds']} rounds, "
-            f"{m['instrs_retired'] / wall:.6g} instrs/sec, "
-            f"{wall * 1e3 / m['rounds']:.4f} ms/round, wall "
-            f"{wall:.2f} s, launches "
-            f"{ {k: v for k, v in counts.items() if v} }, "
-            f"invariant {inv}")
-    (r0, a), (r1, b) = finals[True], finals[False]
-    bad = _leaves_differ(a, b)
-    if r0 != r1 or bad:
-        raise SmokeFailure(f"sync txn_width {K}: the kernels ({r0} "
-                           f"rounds) and the plain rounds ({r1}) end in "
-                           f"different states (leaf {bad})")
-    say("main", f"sync txn_width {K}: kernels and plain rounds, same "
-        f"{r0} rounds, every leaf equal")
-    _sync_single_routes(rows)
+    N = BENCH["num_nodes"]
+    _sync_routes(rows, 3)
+    _sync_routes(rows, 1)
 
     states = {}
     for kernels in (True, False):
         big = sync_cfg(SYNC_BIG, 2, kernels)
         st, wall, counts = _drive(big, lambda s: s.run_rounds(4), warm=True)
-        if kernels and not counts["sync_window"] == counts["sync_replay"] == 4:
+        if kernels and not (counts["sync_multi_round"] == 4
+                            and counts["sync_window"] == 0
+                            and counts["sync_replay"] == 0):
             raise SmokeFailure(f"sync@{SYNC_BIG}: launches {counts}")
         inv = st.check_invariants()
         states[kernels] = convert.to_numpy(st.state)
         say("main", f"sync@{SYNC_BIG} (txn_width 2) x 4 rounds (after a warm-up "
-            f"run) through the {'kernels' if kernels else 'plain rounds'}: "
+            f"run) through the "
+            f"{'fused round' if kernels else 'plain rounds'}: "
             f"retired "
             f"{st.instrs_retired}, {wall * 1e3 / 4:.3f} ms/round, "
             f"invariant {inv}")
         del st
     bad = _leaves_differ(states[True], states[False])
     if bad:
-        raise SmokeFailure(f"sync@{SYNC_BIG}: kernels and plain rounds "
+        raise SmokeFailure(f"sync@{SYNC_BIG}: fused and plain rounds "
                            f"differ in leaf {bad}")
     del states
 
@@ -1339,7 +1387,7 @@ def main() -> int:
             f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
         from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
             deep_fold_kernel, deep_round_kernel, sync_burst_kernel,
-            sync_round_kernel, sync_window_kernel)
+            sync_multi_round_kernel, sync_round_kernel, sync_window_kernel)
         from ue22cs343bb1_openmp_assignment_tpu_torch.parallel import (
             ring_kernel)
         cfg = bench_cfg(BENCH["num_nodes"])
@@ -1359,6 +1407,11 @@ def main() -> int:
                for c in (sync_cfg(BENCH["num_nodes"], 1),
                          sync_contended_cfg(1),
                          sync_cfg(SYNC_ROUND_BIG, 1))]
+            + [(sync_multi_round_kernel.LIBRARY, c)
+               for c in (sync_cfg(BENCH["num_nodes"], 3),
+                         sync_contended_cfg(3),
+                         sync_cfg(SYNC_ROUND_BIG, 3),
+                         sync_cfg(SYNC_BIG, 2))]
             # one ring library serves every (D, shape): both are run-time
             # arguments
             + [(ring_kernel.LIBRARY, None)])
@@ -1368,6 +1421,7 @@ def main() -> int:
         phase_main_path(rows)
         rows.update(phase_sync_kernels())
         rows["sync_round"] = phase_sync_round_kernel()
+        rows["sync_multi_round"] = phase_sync_multi_round_kernel()
         phase_sync_card_vs_cpu()
         phase_sync_main_path(rows)
         rows["ring"] = phase_ring_kernel()

@@ -1,7 +1,7 @@
 """The CUDA kernels (the deep fold, the fused round, the sync window
-engine's window, replay and burst kernels, its fused txn_width 1 round,
-and the routed transport's ring exchange) against their plain versions,
-on the card.
+engine's window, replay and burst kernels, its fused txn_width 1 and
+txn_width >= 2 rounds, and the routed transport's ring exchange) against
+their plain versions, on the card.
 
 Marked ``cuda``: each test skips without a card (decided inside the
 fixture, never at import). The card machine has no JAX, so run this file
@@ -27,6 +27,8 @@ from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
     sync_burst_kernel as sbk)
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import sync_engine as se
+from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
+    sync_multi_round_kernel as smk)
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
     sync_round_kernel as srk)
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
@@ -330,6 +332,105 @@ def test_sync_wrappers_refuse_bad_operands(card):
                          device=card)[1:].view(256, 4)   # cache_val
     with pytest.raises(ValueError, match="16-byte"):
         srk.fused_round(*bad)
+
+
+#: the fused txn_width >= 2 round's configs: K 2/3/4, drain_depth 1/4,
+#: locality 0.3/0.8, and 65,536 nodes (more than the grid's threads: the
+#: node loops go round more than once)
+MULTI = {
+    "k2-h1-l300": (1000, 2, 1, dict(proc_local_permille=300)),
+    "k2-h4-l800": (1000, 2, 4, {}),
+    "k3-h4-l800": (4096, 3, 4, {}),
+    "k3-h4-l300": (256, 3, 4, dict(proc_local_permille=300)),
+    "k3-h1-c2": (33, 3, 1, dict(cache_size=2, mem_size=32,
+                                proc_local_permille=300)),
+    "k4-h1-l300": (1000, 4, 1, dict(proc_local_permille=300)),
+    "k4-h4-c8": (1000, 4, 4, dict(cache_size=8, mem_size=8,
+                                  proc_local_permille=500)),
+    "n65536": (65536, 3, 4, {}),
+}
+
+
+@pytest.mark.parametrize("case", list(MULTI))
+def test_fused_multi_round_equals_plain_round(card, case):
+    n, K, H, kw = MULTI[case]
+    cfg = _sync_cfg(n, K, H, **kw)
+    assert smk.supported(cfg)
+    lib = smk.LIBRARY.load(cfg)
+    if n > 4096:
+        assert lib.sync_multi_round_grid(n) == lib.sync_multi_round_grid(2 * n)
+    # the kernel's block partials are static; it takes no dynamic smem
+    assert lib.sync_multi_round_smem_bytes() == 0
+    assert lib.sync_multi_round_static_smem_bytes() > 0
+    st = se.run_rounds(cfg, se.procedural_state(cfg, 4096, device=card), 6,
+                       fold_impl="plain")
+    for _ in range(3):
+        args = smk.round_inputs(cfg, st)
+        before = smk.fused_round.launches
+        got = smk.fused_round(*args)
+        assert smk.fused_round.launches == before + 1
+        for a, b in zip(got, smk.plain_round(*args)):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        st = smk.round_step_fused(cfg, st)
+
+
+def test_fused_multi_round_rounds_equal_window_route_and_cpu(card):
+    """Rounds to quiescence on the card through the fused round (the
+    route of round_step), through the window kernels and on the CPU's
+    plain rounds: same rounds, every leaf equal; one fused launch a
+    round and no window or replay launch on the fused route."""
+    cfg = _sync_cfg(128, 3, 4, proc_local_permille=500)
+    plain = dataclasses.replace(cfg, pallas_burst=False)
+    f = se.procedural_state(cfg, 64, seed=3, device=card)
+    w, c = f, se.procedural_state(cfg, 64, seed=3, device="cpu")
+    rounds, fused = 0, 0
+    while not bool(c.quiescent()):
+        before = (smk.fused_round.launches, swk.window.launches,
+                  swk.replay.launches)
+        f = se.round_step(cfg, f)
+        assert (smk.fused_round.launches, swk.window.launches,
+                swk.replay.launches) == (before[0] + 1,) + before[1:]
+        w = swk.round_step_multi_kernel(cfg, w)
+        c = se.round_step(plain, c)
+        rounds += 1
+    assert bool(f.quiescent()) and bool(w.quiescent()) and rounds > 0
+    want = convert.to_numpy(c)
+    for st in (f, w):
+        got = convert.to_numpy(st)
+        for name in want:
+            assert (want[name] == got[name]).all(), name
+
+
+def test_fused_multi_round_wrapper_refuses_bad_operands(card):
+    cfg = _sync_cfg(256, 3, 4)
+    args = smk.round_inputs(cfg, se.procedural_state(cfg, 64, device=card))
+    with pytest.raises(ValueError, match="not CUDA"):
+        smk.launch(cfg, *[t.cpu() for t in args[1:]])
+    bad = list(args)
+    bad[3] = args[3].to(torch.int64)                 # cache_state
+    with pytest.raises(ValueError, match="int32"):
+        smk.fused_round(*bad)
+    bad = list(args)
+    bad[1] = args[1].T.contiguous().T                # cache_addr
+    with pytest.raises(ValueError, match="contiguous"):
+        smk.fused_round(*bad)
+    bad = list(args)
+    bad[4] = args[4][:-7]                            # dm
+    with pytest.raises(ValueError, match="dm"):
+        smk.fused_round(*bad)
+    bad = list(args)
+    bad[5] = args[5][:-1]                            # idx
+    with pytest.raises(ValueError, match="idx"):
+        smk.fused_round(*bad)
+    bad = list(args)
+    bad[9] = args[9][:10]                            # metrics
+    with pytest.raises(ValueError, match="metrics"):
+        smk.fused_round(*bad)
+    bad = list(args)
+    bad[2] = torch.empty(256 * 4 + 1, dtype=torch.int32,
+                         device=card)[1:].view(256, 4)   # cache_val
+    with pytest.raises(ValueError, match="16-byte"):
+        smk.fused_round(*bad)
 
 
 # -- the message-level engine: the ring exchange and routed delivery ---------

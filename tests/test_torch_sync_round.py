@@ -6,8 +6,8 @@ JAX namesakes, from mid-run states carried across with
 ``convert.from_numpy``. Each case runs the port twice from the same
 state: the plain round with the event record (held to JAX's events as
 well), and, on procedural workloads, the kernel route
-(``cfg.pallas_burst``: the window kernels, or at txn_width 1 the fused
-round), whose wrappers run the kernels' plain versions on the CPU (the
+(``cfg.pallas_burst``: the fused round at either txn_width), whose
+wrappers run the kernels' plain versions on the CPU (the
 CUDA kernels are held to those on the card by chip_smoke.py and
 tests/test_torch_cuda.py). Stored traces are made once
 with numpy from a seed and fed to both sides. The sync rounds do not
@@ -32,6 +32,8 @@ from ue22cs343bb1_openmp_assignment_tpu_torch import convert
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
     sync_burst_kernel as sbk)
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import sync_engine as tse
+from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
+    sync_multi_round_kernel as smk)
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
     sync_round_kernel as srk)
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
@@ -121,9 +123,11 @@ def test_rounds_and_events_match_jax(case):
 
 def test_untileable_node_count_takes_the_kernel_route(monkeypatch):
     """1100 nodes fit no 1024 tile, so JAX keeps its XLA round under
-    pallas_burst; the port's kernels take any N, so its round goes
-    through the window wrappers (on the CPU their plain versions, by
-    the wrapper's CPU branch or by fold_impl="plain"). Same states."""
+    pallas_burst; the port's kernels take any N, so its window-kernel
+    route (``round_step_multi_kernel``, called here directly: the fused
+    round is round_step's route) goes through the window wrappers (on
+    the CPU their plain versions, by the wrapper's CPU branch or by
+    fold_impl="plain"). Same states."""
     jcfg, tcfg = cfg_pair(1100, **dict(PROC, drain_depth=1, txn_width=2,
                                        proc_local_permille=700,
                                        pallas_burst=True))
@@ -140,7 +144,8 @@ def test_untileable_node_count_takes_the_kernel_route(monkeypatch):
         lambda *a: by_impl.append(1) or plain_window(*a))
     for r in range(4):
         js = jse.run_rounds(jcfg, js, 1)
-        ts = tse.round_step(tcfg, ts, "plain" if r % 2 else "kernel")
+        ts = swk.round_step_multi_kernel(tcfg, ts,
+                                         "plain" if r % 2 else "kernel")
         assert_states_equal(js, ts, f"round {r + 1}: ")
     assert (len(by_wrapper), len(by_impl)) == (2, 2)
     assert swk.window.launches == 0
@@ -148,11 +153,11 @@ def test_untileable_node_count_takes_the_kernel_route(monkeypatch):
 
 def test_round_step_dispatch(monkeypatch):
     """pallas_burst routes procedural rounds without events through the
-    kernel modules (txn_width 1: the fused round, or the burst kernel
+    kernel modules (the fused rounds; at txn_width 1 the burst kernel
     where the fused round does not take the config); stored traces and
     event tracing keep the plain rounds, as in JAX."""
     seen = []
-    monkeypatch.setattr(swk, "round_step_multi_kernel",
+    monkeypatch.setattr(smk, "round_step_fused",
                         lambda cfg, st, impl: seen.append(("multi", impl))
                         or st)
     monkeypatch.setattr(srk, "round_step_fused",

@@ -26,16 +26,16 @@ from ue22cs343bb1_openmp_assignment_tpu_torch.models.transactional import (
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
     deep_round_kernel as drk)
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
-    sync_round_kernel as srk)
+    sync_multi_round_kernel as smk)
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
-    sync_window_kernel as swk)
+    sync_round_kernel as srk)
 
 from tests.torch_parity import BENCH_DEEP, assert_states_equal, cfg_pair
 
 LENGTH, CHUNK = 32, 16
 NO_LAUNCHES = {"pre": 0, "flags": 0, "replay": 0, "round": 0,
-               "sync_burst": 0, "sync_round": 0, "sync_window": 0,
-               "sync_replay": 0, "ring": 0}
+               "sync_burst": 0, "sync_round": 0, "sync_multi_round": 0,
+               "sync_window": 0, "sync_replay": 0, "ring": 0}
 
 
 @functools.lru_cache(maxsize=None)
@@ -168,13 +168,13 @@ def test_sync_run_to_quiescence_matches_jax(case, kernels, monkeypatch):
     """TransactionalSystem.procedural(...).run() on a sync config: final
     state, metrics, dumps and the invariant report equal JAX's. With
     pallas_burst every round goes through the kernel wrappers (their
-    plain versions on the CPU): the window kernels' at txn_width 3, the
-    fused round's at txn_width 1."""
+    plain versions on the CPU): the fused rounds', at txn_width 3 and at
+    txn_width 1."""
     nodes, kw, length = SYNC_CASES[case]
     jcfg, want = _jax_sync_quiescent(case)
     _, tcfg = cfg_pair(nodes, **dict(kw, pallas_burst=kernels))
     calls = []
-    for mod, name in ((swk, "plain_window"), (srk, "plain_round")):
+    for mod, name in ((smk, "plain_round"), (srk, "plain_round")):
         fn = getattr(mod, name)
         monkeypatch.setattr(
             mod, name, lambda *a, _fn=fn: calls.append(1) or _fn(*a))

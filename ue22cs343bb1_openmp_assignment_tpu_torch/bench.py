@@ -25,10 +25,11 @@ fused round on a card where ``supported(cfg)`` holds, as the JAX
 
 ``--engine sync`` is the sync window engine: txn_width 3 and drain_depth
 4 by default, drain_depth 16 at ``--txn-width 1``. ``--window-kernels``
-sets ``cfg.pallas_burst``, which routes the node-local folds through the
-CUDA kernels (``ops/sync_window_kernel``), or at txn_width 1 the whole
-round through one kernel (``ops/sync_round_kernel``); ``auto`` turns it
-on for a card, ``off`` measures the plain rounds.
+sets ``cfg.pallas_burst``, which routes the whole round through one
+kernel: ``ops/sync_multi_round_kernel`` at txn_width >= 2 (the window
+kernels of ``ops/sync_window_kernel`` where it does not take the config:
+more than 32 lines a node), ``ops/sync_round_kernel`` at txn_width 1;
+``auto`` turns it on for a card, ``off`` measures the plain rounds.
 
 ``--engine async`` is the message-level engine (``ops.step``) at the JAX
 ``bench.py``'s async defaults: scatter INV (``SystemConfig.scale``),
@@ -69,6 +70,8 @@ from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
     sync_burst_kernel as sbk)
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import sync_engine as se
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
+    sync_multi_round_kernel as smk)
+from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
     sync_round_kernel as srk)
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
     sync_window_kernel as swk)
@@ -78,6 +81,7 @@ from ue22cs343bb1_openmp_assignment_tpu_torch.parallel import ring_kernel
 KERNEL_NAMES = {"fold": "deep_fold_kernel", "round": "deep_round_kernel",
                 "sync_burst": "sync_burst_kernel",
                 "sync_round": "sync_round_kernel",
+                "sync_multi_round": "sync_multi_round_kernel",
                 "sync_window": "sync_window_kernel",
                 "sync_replay": "sync_replay_kernel",
                 "ring": "ring_exchange_kernel"}
@@ -108,7 +112,8 @@ def sync_config(nodes: int, txn_width: int = 3, drain_depth=None,
 
 
 _COUNTED = {"round": drk.fused_round, "sync_burst": sbk.burst,
-            "sync_round": srk.fused_round, "sync_window": swk.window,
+            "sync_round": srk.fused_round,
+            "sync_multi_round": smk.fused_round, "sync_window": swk.window,
             "sync_replay": swk.replay, "ring": ring_kernel.exchange}
 
 

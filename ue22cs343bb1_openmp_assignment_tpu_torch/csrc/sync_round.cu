@@ -15,6 +15,10 @@
 //        round and seed (0-d), the 11 metric counters [11];
 //   out: the cache planes, dm, idx, round + 1 and the counters.
 //
+// What it shares with the txn_width >= 2 round (csrc/sync_multi_round.cu)
+// outside the node-local burst is in csrc/sync_round.cuh: the claim key,
+// the dm copy, the fan-out of one line, the counters and the grid.
+//
 // Phases (each "|" is a grid barrier, cooperative_groups::this_grid()
 // .sync(); the launch is cooperative, so every block is resident):
 //
@@ -85,43 +89,24 @@
 // may wrap (round << 2, the key) go through uint32_t; the arithmetic >>
 // of DM_ACT, which may be negative, stays signed; idx + n_ret wraps.
 
-#include <atomic>
-
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "sync_burst.cuh"
-
-#if !defined(SR_PB) || !defined(SR_CMR)
-#error "the build defines SR_PB (prio bits) and SR_CMR (claim_max_rounds)"
-#endif
+#include "sync_round.cuh"
 
 namespace {
 
 using namespace sburst;
-using hash32::mix32;
+using namespace sround;
 namespace cg = cooperative_groups;
 
 constexpr int BLOCK = 64;
-constexpr int WARPS = BLOCK / 32;
-// At most this many resident blocks an SM (two warps a scheduler): each
-// grid barrier waits for every block to arrive, so larger machines loop
-// over their nodes rather than add blocks.
+// At most this many resident blocks an SM (two warps a scheduler)
 constexpr int MAX_BLOCKS_PER_SM = 4;
-constexpr int PB = SR_PB;                  // prio bits
-constexpr uint32_t PMASK = (1u << PB) - 1u;
-constexpr int PSHIFT = PB / 2 > 1 ? PB / 2 : 1;
-constexpr int CMR = SR_CMR;                // sync_engine.claim_max_rounds
-constexpr int DM_STATE = 0, DM_COUNT = 1, DM_OWNER = 2, DM_MEM = 3,
-              DM_ACT = 4, DM_REQ = 5, DM_CLAIM = 6, DM_COLS = 7;
-constexpr int D_EM = 0, D_S = 1, D_U = 2;  // DirState
-constexpr int ACT_NONE = 0, ACT_KILL = 1, ACT_DOWNGRADE = 2,
-              ACT_PROMOTE = 3;
-constexpr int N_METRICS = 11;              // sync_engine.METRIC_FIELDS
-// metric deltas, in METRIC_FIELDS order after `rounds`
-constexpr int M_RET = 0, M_RH = 1, M_WH = 2, M_RD = 3, M_WR = 4, M_UP = 5,
-              M_CONF = 6, M_EV = 7, M_KILL = 8, M_PROMO = 9, N_DELTAS = 10;
-static_assert(PB >= 1 && PB <= 30, "prio bits in [1, 30]");
+// Dynamic shared memory a block: none (the block's metric partials are
+// a static array). The occupancy query and the launch both pass this.
+constexpr size_t SMEM_BYTES = 0;
 
 // Per-node scratch: an int32 [R_ROWS, n] plane, row r of node i at
 // r * n + i.
@@ -157,104 +142,6 @@ struct Args {
   int* scratch;        // [R_ROWS, n]
   int n;
 };
-
-// The round's claim keys (sync_engine._round_key_rs): a countdown in the
-// high bits, a reseeded bijective node-priority permutation in the low.
-struct Keys {
-  uint32_t h;
-  uint32_t countdown;  // max(claim_max_rounds - round, 0)
-
-  __device__ __forceinline__ int key(int node) const {
-    uint32_t x = (uint32_t)node;
-    x = (x * ((h << 1) | 1u) + (h >> 7)) & PMASK;
-    x ^= x >> PSHIFT;
-    x = (x * 0x9E3779B9u) & PMASK;
-    return (int)((countdown << PB) | x);
-  }
-};
-
-__device__ __forceinline__ Keys make_keys(int round, int seed) {
-  Keys k;
-  k.h = mix32(((uint32_t)round * 0x9E3779B9u) ^
-              ((uint32_t)seed * 0x85EBCA77u));
-  const int d = (int)((uint32_t)CMR - (uint32_t)round);
-  k.countdown = d > 0 ? (uint32_t)d : 0u;
-  return k;
-}
-
-__device__ __forceinline__ int clip(int v, int lo, int hi) {
-  return v < lo ? lo : (v > hi ? hi : v);
-}
-
-// A node's C words of an [n, C] plane: 16-byte accesses when C is a
-// multiple of 4 (the wrapper checks that the planes are 16-byte
-// aligned). RO: the plane is an input, never written while the kernel
-// runs, and read through the read-only path.
-template <bool RO, typename T>
-__device__ __forceinline__ T ld(const T* p) {
-  if constexpr (RO) return __ldg(p);
-  else return *p;
-}
-
-template <bool RO>
-__device__ __forceinline__ void load_row(const int* plane, int node,
-                                         int (&r)[C]) {
-  const int* p = plane + (size_t)node * C;
-  if constexpr (C % 4 == 0) {
-#pragma unroll
-    for (int j = 0; j < C / 4; ++j) {
-      const int4 v = ld<RO>(reinterpret_cast<const int4*>(p) + j);
-      r[4 * j] = v.x;
-      r[4 * j + 1] = v.y;
-      r[4 * j + 2] = v.z;
-      r[4 * j + 3] = v.w;
-    }
-  } else {
-#pragma unroll
-    for (int c = 0; c < C; ++c) r[c] = ld<RO>(p + c);
-  }
-}
-
-__device__ __forceinline__ void store_row(int* plane, int node,
-                                          const int (&r)[C]) {
-  int* p = plane + (size_t)node * C;
-  if constexpr (C % 4 == 0) {
-#pragma unroll
-    for (int j = 0; j < C / 4; ++j)
-      reinterpret_cast<int4*>(p)[j] =
-          make_int4(r[4 * j], r[4 * j + 1], r[4 * j + 2], r[4 * j + 3]);
-  } else {
-#pragma unroll
-    for (int c = 0; c < C; ++c) p[c] = r[c];
-  }
-}
-
-// P0: dm -> dm_out over the whole grid, 16-byte words (the wrapper
-// checks the alignment), a batch of loads in flight before any store.
-__device__ __forceinline__ void copy_dm(const Args& a, size_t words,
-                                        int first, int stride) {
-  const size_t nvec = words / 4;
-  const int4* src = reinterpret_cast<const int4*>(a.dm);
-  int4* dst = reinterpret_cast<int4*>(a.dm_o);
-  constexpr int VB = 8;   // 16-byte loads in flight a thread
-#pragma unroll 1
-  for (size_t v0 = first; v0 < nvec; v0 += (size_t)VB * stride) {
-    int4 w[VB];
-#pragma unroll
-    for (int u = 0; u < VB; ++u) {
-      const size_t v = v0 + (size_t)u * stride;
-      if (v < nvec) w[u] = __ldg(src + v);
-    }
-#pragma unroll
-    for (int u = 0; u < VB; ++u) {
-      const size_t v = v0 + (size_t)u * stride;
-      if (v < nvec) dst[v] = w[u];
-    }
-  }
-#pragma unroll 1
-  for (size_t j = 4 * nvec + first; j < words; j += stride)
-    a.dm_o[j] = __ldg(a.dm + j);
-}
 
 // P1 for one node: burst, classification, claims.
 __device__ __forceinline__ void phase_claim(const Args& a, const Keys& k,
@@ -388,23 +275,8 @@ __device__ __forceinline__ void phase_fanout(const Args& a, int round,
   load_row<false>(a.cv_o, node, cv);
   load_row<false>(a.cs_o, node, cs);
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    if (cs[c] == INV) continue;
-    int* row = a.dm_o + (size_t)clip(ca[c], 0, E - 1) * DM_COLS;
-    const int act = row[DM_ACT];
-    if (row[DM_REQ] == node || (act >> 2) != round) continue;
-    const int code = act & 3;
-    if (code == ACT_KILL) {
-      cs[c] = INV;
-      acc[M_KILL] += 1;
-    } else if (code == ACT_DOWNGRADE) {
-      cs[c] = SHD;
-    } else if (code == ACT_PROMOTE) {
-      cs[c] = EXC;
-      acc[M_PROMO] += 1;
-      row[DM_OWNER] = node;
-    }
-  }
+  for (int c = 0; c < C; ++c)
+    fan_out_line(a.dm_o, E, round, node, ca[c], cs[c], acc);
   const int fill = a.scratch[R_FILL * n + node];
   if (fill >= 0) {
     const int addr = a.scratch[R_OA * n + node] & 0x0FFFFFFF;
@@ -433,12 +305,8 @@ __global__ void __launch_bounds__(BLOCK) sync_round_kernel(Args a) {
 #pragma unroll
   for (int j = 0; j < N_DELTAS; ++j) acc[j] = 0;
 
-  copy_dm(a, (size_t)E * DM_COLS, first, stride);
-  if (blockIdx.x == 0 && threadIdx.x < N_METRICS)
-    a.metrics_o[threadIdx.x] =
-        (int)((uint32_t)__ldg(a.metrics + threadIdx.x) +
-              (threadIdx.x == 0 ? 1u : 0u));
-  if (first == 0) *a.round_o = (int)((uint32_t)round + 1u);
+  copy_dm(a.dm, a.dm_o, (size_t)E * DM_COLS, first, stride);
+  start_counters(a.metrics, a.metrics_o, round, a.round_o, first);
   grid.sync();
 #pragma unroll 1
   for (int node = first; node < n; node += stride)
@@ -451,73 +319,10 @@ __global__ void __launch_bounds__(BLOCK) sync_round_kernel(Args a) {
 #pragma unroll 1
   for (int node = first; node < n; node += stride)
     phase_fanout(a, round, node, E, acc);
-
-  // the block's metric deltas: warp sums, then one atomicAdd a counter
-  __shared__ int part[WARPS][N_DELTAS];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int j = 0; j < N_DELTAS; ++j) {
-    int v = acc[j];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xFFFFFFFFu, v, o);
-    if (lane == 0) part[warp][j] = v;
-  }
-  __syncthreads();
-  if (threadIdx.x < N_DELTAS) {
-    int s = 0;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) s += part[w][threadIdx.x];
-    if (s != 0) atomicAdd(a.metrics_o + 1 + threadIdx.x, s);
-  }
+  add_counters<BLOCK>(acc, a.metrics_o);
 }
 
-// Dynamic shared memory a block: none (the block's metric partials are
-// a static array). The occupancy query and the launch both pass this.
-constexpr size_t SMEM_BYTES = 0;
-constexpr int MAX_DEVICES = 64;
-// blocks that can be resident at once on each device, 0 until asked
-std::atomic<int> resident_cache[MAX_DEVICES];
-
-// Blocks that can be resident at once on the current device (at most
-// MAX_BLOCKS_PER_SM an SM), queried once a device and then cached: the
-// grid does not change between rounds.
-int resident_blocks(int* out) {
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  const bool cached = dev >= 0 && dev < MAX_DEVICES;
-  if (cached) {
-    const int r = resident_cache[dev].load(std::memory_order_relaxed);
-    if (r > 0) {
-      *out = r;
-      return 0;
-    }
-  }
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, sync_round_kernel, BLOCK, SMEM_BYTES);
-  if (e != cudaSuccess) return (int)e;
-  if (!coop) return (int)cudaErrorNotSupported;
-  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  if (per_sm > MAX_BLOCKS_PER_SM) per_sm = MAX_BLOCKS_PER_SM;
-  *out = per_sm * sms;
-  if (cached) resident_cache[dev].store(*out, std::memory_order_relaxed);
-  return 0;
-}
-
-// Blocks of the launch for n nodes: one node a thread while the nodes
-// fit the blocks that can be resident at once, else all of those.
-int grid_for(int n, int* grid) {
-  int resident = 0;
-  const int err = resident_blocks(&resident);
-  if (err) return err;
-  const int want = (n + BLOCK - 1) / BLOCK;
-  *grid = want < resident ? want : resident;
-  return 0;
-}
+Grid<BLOCK, MAX_BLOCKS_PER_SM, SMEM_BYTES> the_grid;
 
 }  // namespace
 
@@ -542,7 +347,7 @@ int sync_round_static_smem_bytes() {
 // the grid the launch for n nodes uses (>= 1), or -(CUDA error)
 int sync_round_grid(int n) {
   int grid = 0;
-  const int err = grid_for(n > 0 ? n : 1, &grid);
+  const int err = the_grid.grid_for(sync_round_kernel, n > 0 ? n : 1, &grid);
   return err ? -err : grid;
 }
 
@@ -555,14 +360,14 @@ int sync_round(const int* ca, const int* cv, const int* cs, const int* dm,
                int* metrics_o, int* scratch, int n, void* stream) {
   if (n <= 0) return (int)cudaErrorInvalidValue;
   int grid = 0;
-  const int err = grid_for(n, &grid);
+  const int err = the_grid.grid_for(sync_round_kernel, n, &grid);
   if (err) return err;
   Args a = {ca,   cv,   cs,   dm,    idx,     cnt,       round,   seed, metrics,
             ca_o, cv_o, cs_o, dm_o, idx_o, round_o, metrics_o, scratch, n};
   void* args[] = {&a};
   const cudaError_t e = cudaLaunchCooperativeKernel(
-      (const void*)sync_round_kernel, dim3(grid), dim3(BLOCK), args,
-      SMEM_BYTES, static_cast<cudaStream_t>(stream));
+      (const void*)sync_round_kernel, dim3(grid), dim3(BLOCK), args, SMEM_BYTES,
+      static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) {
     cudaGetLastError();
     return (int)e;

@@ -1,0 +1,277 @@
+// Device code shared by the two cooperative round kernels of the sync
+// engine: csrc/sync_round.cu (txn_width 1) and csrc/sync_multi_round.cu
+// (txn_width >= 2). Both take the state as the engine holds it (cache
+// planes [n, C], dm [E, 7], the [11] counters) to the next round's
+// state in one launch; what they share is everything outside their
+// node-local folds:
+//
+// - the claim key of ops/sync_engine._round_key_rs in uint32 arithmetic
+//   (Keys, make_keys);
+// - JAX's clipped gathers (clip) and a node's row of an [n, C] plane in
+//   16-byte words (load_row, store_row);
+// - P0, the copy of dm to dm_out over the whole grid (copy_dm), and the
+//   counters' start (start_counters: rounds + 1, round + 1);
+// - the fan-out of one valid line (fan_out_line: kill, downgrade or
+//   promote, and DM_OWNER on a promotion);
+// - the block's reduction of the metric deltas (add_counters: warp
+//   shuffles, then one integer atomicAdd a counter and block);
+// - the grid: blocks that can be resident at once, queried once a device
+//   and cached (grid_for).
+//
+// The build defines SR_PB (the claim key's priority bits) and SR_CMR
+// (sync_engine.claim_max_rounds), and the hash's constants
+// (csrc/hash32.cuh). The cache-state codes live in sround::line, so that
+// a kernel can bring this namespace in beside its fold's own.
+
+#pragma once
+
+#include <atomic>
+#include <stdint.h>
+
+#include <cuda_runtime.h>
+
+#include "hash32.cuh"
+
+#if !defined(SR_PB) || !defined(SR_CMR)
+#error "the build defines SR_PB (prio bits) and SR_CMR (claim_max_rounds)"
+#endif
+
+namespace sround {
+
+constexpr int PB = SR_PB;                  // prio bits
+constexpr uint32_t PMASK = (1u << PB) - 1u;
+constexpr int PSHIFT = PB / 2 > 1 ? PB / 2 : 1;
+constexpr int CMR = SR_CMR;                // sync_engine.claim_max_rounds
+static_assert(PB >= 1 && PB <= 30, "prio bits in [1, 30]");
+
+constexpr int DM_STATE = 0, DM_COUNT = 1, DM_OWNER = 2, DM_MEM = 3,
+              DM_ACT = 4, DM_REQ = 5, DM_CLAIM = 6, DM_COLS = 7;
+constexpr int D_EM = 0, D_S = 1, D_U = 2;  // DirState
+constexpr int ACT_NONE = 0, ACT_KILL = 1, ACT_DOWNGRADE = 2,
+              ACT_PROMOTE = 3;
+constexpr int N_METRICS = 11;              // sync_engine.METRIC_FIELDS
+// metric deltas, in METRIC_FIELDS order after `rounds`
+constexpr int M_RET = 0, M_RH = 1, M_WH = 2, M_RD = 3, M_WR = 4, M_UP = 5,
+              M_CONF = 6, M_EV = 7, M_KILL = 8, M_PROMO = 9, N_DELTAS = 10;
+
+namespace line {                           // CacheState
+constexpr int MOD = 0, EXC = 1, SHD = 2, INV = 3;
+}
+
+// The round's claim keys (sync_engine._round_key_rs): a countdown in the
+// high bits, a reseeded bijective node-priority permutation in the low.
+struct Keys {
+  uint32_t h;
+  uint32_t countdown;  // max(claim_max_rounds - round, 0)
+
+  __device__ __forceinline__ int key(int node) const {
+    uint32_t x = (uint32_t)node;
+    x = (x * ((h << 1) | 1u) + (h >> 7)) & PMASK;
+    x ^= x >> PSHIFT;
+    x = (x * 0x9E3779B9u) & PMASK;
+    return (int)((countdown << PB) | x);
+  }
+};
+
+__device__ __forceinline__ Keys make_keys(int round, int seed) {
+  Keys k;
+  k.h = hash32::mix32(((uint32_t)round * 0x9E3779B9u) ^
+                      ((uint32_t)seed * 0x85EBCA77u));
+  const int d = (int)((uint32_t)CMR - (uint32_t)round);
+  k.countdown = d > 0 ? (uint32_t)d : 0u;
+  return k;
+}
+
+__device__ __forceinline__ int clip(int v, int lo, int hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
+}
+
+// A node's C words of an [n, C] plane: 16-byte accesses when C is a
+// multiple of 4 (the wrappers check that the planes are 16-byte
+// aligned). RO: the plane is an input, never written while the kernel
+// runs, and read through the read-only path.
+template <bool RO, typename T>
+__device__ __forceinline__ T ld(const T* p) {
+  if constexpr (RO) return __ldg(p);
+  else return *p;
+}
+
+template <bool RO, int C>
+__device__ __forceinline__ void load_row(const int* plane, int node,
+                                         int (&r)[C]) {
+  const int* p = plane + (size_t)node * C;
+  if constexpr (C % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < C / 4; ++j) {
+      const int4 v = ld<RO>(reinterpret_cast<const int4*>(p) + j);
+      r[4 * j] = v.x;
+      r[4 * j + 1] = v.y;
+      r[4 * j + 2] = v.z;
+      r[4 * j + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < C; ++c) r[c] = ld<RO>(p + c);
+  }
+}
+
+template <int C>
+__device__ __forceinline__ void store_row(int* plane, int node,
+                                          const int (&r)[C]) {
+  int* p = plane + (size_t)node * C;
+  if constexpr (C % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < C / 4; ++j)
+      reinterpret_cast<int4*>(p)[j] =
+          make_int4(r[4 * j], r[4 * j + 1], r[4 * j + 2], r[4 * j + 3]);
+  } else {
+#pragma unroll
+    for (int c = 0; c < C; ++c) p[c] = r[c];
+  }
+}
+
+// P0: dm -> dm_out (`words` int32) over the whole grid, 16-byte words
+// (the wrappers check the alignment), a batch of loads in flight before
+// any store. `first` is the thread's index in the grid, `stride` the
+// grid's threads.
+__device__ __forceinline__ void copy_dm(const int* dm, int* dm_o,
+                                        size_t words, int first,
+                                        int stride) {
+  const size_t nvec = words / 4;
+  const int4* src = reinterpret_cast<const int4*>(dm);
+  int4* dst = reinterpret_cast<int4*>(dm_o);
+  constexpr int VB = 8;   // 16-byte loads in flight a thread
+#pragma unroll 1
+  for (size_t v0 = first; v0 < nvec; v0 += (size_t)VB * stride) {
+    int4 w[VB];
+#pragma unroll
+    for (int u = 0; u < VB; ++u) {
+      const size_t v = v0 + (size_t)u * stride;
+      if (v < nvec) w[u] = __ldg(src + v);
+    }
+#pragma unroll
+    for (int u = 0; u < VB; ++u) {
+      const size_t v = v0 + (size_t)u * stride;
+      if (v < nvec) dst[v] = w[u];
+    }
+  }
+#pragma unroll 1
+  for (size_t j = 4 * nvec + first; j < words; j += stride)
+    dm_o[j] = __ldg(dm + j);
+}
+
+// P0's other half: block 0 writes the counters with rounds + 1, and the
+// grid's first thread round + 1.
+__device__ __forceinline__ void start_counters(const int* metrics,
+                                               int* metrics_o, int round,
+                                               int* round_o, int first) {
+  if (blockIdx.x == 0 && threadIdx.x < N_METRICS)
+    metrics_o[threadIdx.x] =
+        (int)((uint32_t)__ldg(metrics + threadIdx.x) +
+              (threadIdx.x == 0 ? 1u : 0u));
+  if (first == 0) *round_o = (int)((uint32_t)round + 1u);
+}
+
+// The fan-out for one line of `node` (tag `tag`, state `state`): a valid
+// line reads DM_ACT and DM_REQ at its tag's entry and, where this
+// round's action there is another node's, is killed, downgraded or
+// promoted; a promoted line writes its node as the entry's DM_OWNER.
+__device__ __forceinline__ void fan_out_line(int* dm_o, int E, int round,
+                                             int node, int tag, int& state,
+                                             int (&acc)[N_DELTAS]) {
+  if (state == line::INV) return;
+  int* row = dm_o + (size_t)clip(tag, 0, E - 1) * DM_COLS;
+  const int act = row[DM_ACT];
+  if (row[DM_REQ] == node || (act >> 2) != round) return;
+  const int code = act & 3;
+  if (code == ACT_KILL) {
+    state = line::INV;
+    acc[M_KILL] += 1;
+  } else if (code == ACT_DOWNGRADE) {
+    state = line::SHD;
+  } else if (code == ACT_PROMOTE) {
+    state = line::EXC;
+    acc[M_PROMO] += 1;
+    row[DM_OWNER] = node;
+  }
+}
+
+// The block's metric deltas onto metrics_o[1..10]: warp sums, then one
+// atomicAdd a counter (integer and order-free, so the result is
+// deterministic). Every thread of the block calls it.
+template <int BLOCK>
+__device__ __forceinline__ void add_counters(const int (&acc)[N_DELTAS],
+                                             int* metrics_o) {
+  constexpr int WARPS = BLOCK / 32;
+  static_assert(BLOCK % 32 == 0, "whole warps");
+  __shared__ int part[WARPS][N_DELTAS];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int j = 0; j < N_DELTAS; ++j) {
+    int v = acc[j];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xFFFFFFFFu, v, o);
+    if (lane == 0) part[warp][j] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < N_DELTAS) {
+    int s = 0;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) s += part[w][threadIdx.x];
+    if (s != 0) atomicAdd(metrics_o + 1 + threadIdx.x, s);
+  }
+}
+
+// The cooperative grid of one kernel: blocks of BLOCK threads, at most
+// MAX_PER_SM resident blocks an SM (each grid barrier waits for every
+// block to arrive, so larger machines loop over their nodes rather than
+// add blocks), SMEM bytes of dynamic shared memory a block. The number
+// of blocks that can be resident at once is queried once a device and
+// then cached: the grid does not change between rounds.
+template <int BLOCK, int MAX_PER_SM, size_t SMEM>
+struct Grid {
+  static constexpr int MAX_DEVICES = 64;
+  std::atomic<int> resident_cache[MAX_DEVICES];  // 0 until asked
+
+  template <class F>
+  int resident_blocks(F* kernel, int* out) {
+    int dev = 0, sms = 0, coop = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return (int)e;
+    const bool cached = dev >= 0 && dev < MAX_DEVICES;
+    if (cached) {
+      const int r = resident_cache[dev].load(std::memory_order_relaxed);
+      if (r > 0) {
+        *out = r;
+        return 0;
+      }
+    }
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        BLOCK, SMEM);
+    if (e != cudaSuccess) return (int)e;
+    if (!coop) return (int)cudaErrorNotSupported;
+    if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+    if (per_sm > MAX_PER_SM) per_sm = MAX_PER_SM;
+    *out = per_sm * sms;
+    if (cached) resident_cache[dev].store(*out, std::memory_order_relaxed);
+    return 0;
+  }
+
+  // Blocks of the launch for n nodes: one node a thread while the nodes
+  // fit the blocks that can be resident at once, else all of those.
+  template <class F>
+  int grid_for(F* kernel, int n, int* grid) {
+    int resident = 0;
+    const int err = resident_blocks(kernel, &resident);
+    if (err) return err;
+    const int want = (n + BLOCK - 1) / BLOCK;
+    *grid = want < resident ? want : resident;
+    return 0;
+  }
+};
+
+}  // namespace sround

@@ -1,5 +1,6 @@
 // The multi-transaction window fold for one node, one step at a time, as
-// __device__ code shared by the two kernels of csrc/sync_window.cu.
+// __device__ code shared by the two kernels of csrc/sync_window.cu and
+// the fused txn_width >= 2 round (csrc/sync_multi_round.cu).
 //
 // The body is ops/sync_engine.window_fold (JAX ops/pallas_window.py:_fold)
 // written out for a single node: per step the instruction comes from the
@@ -63,13 +64,28 @@ struct Fold {
   bool frozen, stopped;
   int n_txn;
 
+  // The fold from the round-start lines of `node` in [C, n] planes.
   __device__ __forceinline__ void init(const int* ca0, const int* cv0,
                                        const int* cs0, int n, int node) {
+    int a[C], v[C], s[C];
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      ca[c] = ca0[c * n + node];
-      cv[c] = cv0[c * n + node];
-      cs[c] = cs0[c * n + node];
+      a[c] = ca0[c * n + node];
+      v[c] = cv0[c * n + node];
+      s[c] = cs0[c * n + node];
+    }
+    init_lines(a, v, s);
+  }
+
+  // The fold from a node's round-start lines, already in registers.
+  __device__ __forceinline__ void init_lines(const int (&a)[C],
+                                             const int (&v)[C],
+                                             const int (&s)[C]) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      ca[c] = a[c];
+      cv[c] = v[c];
+      cs[c] = s[c];
       fo[c] = K;
       cvp[c] = cv[c];
     }

@@ -18,15 +18,18 @@ Three rounds, dispatched by ``round_step``:
   instructions with up to ``txn_width`` transactions per node
   (``_round_step_multi``).
 
-Under ``cfg.pallas_burst`` on a procedural workload the txn_width 1
-round runs as one CUDA kernel (``ops/sync_round_kernel``: burst, claim,
-commit, fan-out and counters in one launch), and the node-local folds of
-the txn_width > 1 round run as CUDA kernels (``ops/sync_window_kernel``),
-where the JAX package routes the node-local part of both through its
-Pallas kernels. ``_round_step_single(use_kernel=True)`` keeps the burst
-alone as a kernel (``ops/sync_burst_kernel``). Outside the fused round
-the claim scatter-min, the row gather, the commit scatter and the
-fan-out are plain tensor code, held to the JAX index semantics by
+Under ``cfg.pallas_burst`` on a procedural workload each round runs as
+one CUDA kernel: the txn_width 1 round in ``ops/sync_round_kernel``
+(burst, claim, commit, fan-out and counters in one launch), the
+txn_width > 1 round in ``ops/sync_multi_round_kernel`` (both window
+folds, claim, commit, fan-out and counters in one launch), where the
+JAX package routes the node-local part of both through its Pallas
+kernels. ``_round_step_single(use_kernel=True)`` keeps the burst alone
+as a kernel (``ops/sync_burst_kernel``), and
+``sync_window_kernel.round_step_multi_kernel`` the two window folds
+(``ops/sync_window_kernel``). Outside the fused rounds the claim
+scatter-min, the row gather, the commit scatter and the fan-out are
+plain tensor code, held to the JAX index semantics by
 ``deep_engine.TorchIndexOps``.
 
 State is a dataclass of int32 tensors on one device. The runners are
@@ -1100,8 +1103,11 @@ def round_step(cfg: SystemConfig, st: SyncState,
     txn_width 1 round as one kernel
     (``sync_round_kernel.round_step_fused``, where
     ``sync_round_kernel.supported(cfg)`` holds; else the burst kernel
-    inside ``_round_step_single``), the two window folds of the other
-    (``sync_window_kernel.round_step_multi_kernel``). Unlike the TPU
+    inside ``_round_step_single``), and the other as one kernel too
+    (``sync_multi_round_kernel.round_step_fused``, where
+    ``sync_multi_round_kernel.supported(cfg)`` holds; else its two
+    window folds as kernels,
+    ``sync_window_kernel.round_step_multi_kernel``). Unlike the TPU
     kernels these need no tiling of the node axis, so every N takes
     that route; the results are bit-identical either way.
 
@@ -1142,7 +1148,10 @@ def round_step(cfg: SystemConfig, st: SyncState,
                                   fold_impl=fold_impl)
     if use_kernel:
         from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
-            sync_window_kernel)
+            sync_multi_round_kernel, sync_window_kernel)
+        if sync_multi_round_kernel.supported(cfg):
+            return sync_multi_round_kernel.round_step_fused(cfg, st,
+                                                            fold_impl)
         return sync_window_kernel.round_step_multi_kernel(cfg, st,
                                                           fold_impl)
     return _round_step_multi(cfg, st, with_events)

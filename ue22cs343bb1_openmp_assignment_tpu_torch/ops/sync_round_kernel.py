@@ -69,7 +69,8 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 
 LIBRARY = kernel_build.Library("sync_round", "sync_round.cu",
-                               ("sync_burst.cuh", "hash32.cuh"), defines,
+                               ("sync_burst.cuh", "sync_round.cuh",
+                                "hash32.cuh"), defines,
                                _bind, {r"sync_round_kernel": "round"})
 
 

@@ -22,6 +22,11 @@ scatter in plain tensor code, in the kernels' transposed [K, N] layout:
 ``sync_engine.multi_middle``, the same body the plain round runs in
 [N, K].
 
+These kernels are the TPU kernels' direct counterparts. The main path
+at txn_width >= 2 is the fused round (``ops/sync_multi_round_kernel``,
+one launch a round around the same fold body); ``round_step`` takes
+this route only where the fused round does not take the config.
+
 For a CUDA tensor a wrapper launches its kernel on the current stream
 or raises; it never falls back. For a CPU tensor it runs its plain
 version (``plain_window``, ``plain_replay``: ``sync_engine.window_fold``
