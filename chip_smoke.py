@@ -60,7 +60,23 @@ Phases (each prints its own line; any failure exits non-zero):
    at 1048576 nodes (txn_width 2) through the fused round against the
    plain rounds; 8 rounds of the 4096-node txn_width 3 machine on stored
    traces made from a seed, card against CPU;
-7. the message-level engine (async) and its routed delivery: the ring
+7. seed ensembles (slice 8): at the sync bench defaults (txn_width 3 /
+   drain_depth 4, then txn_width 1 / drain_depth 16), R = 8 machines
+   (seeds 0-7) to quiescence through ``run_ensemble_to_quiescence``:
+   one sync_multi_round (sync_round) launch an ensemble round and no
+   other, every replica bit-identical to its solo fused run, ms an
+   ensemble round and aggregate instrs/sec against 8 x the solo ms a
+   round, a torch.profiler window; the replica axis against its plain
+   version at R = 8 on mid-run inputs (time, bound, plain time, ptxas);
+   R = 64 x 4096 nodes for 16 rounds (replicas 0, 21, 42, 63 equal to
+   their solo runs; the kernel timed there); R = 3 x 256 nodes x 64
+   rounds on the card against the CPU; the stored-trace seed sweep
+   (``utils.search.match_accepted``) of tests/fixtures/mini on the card
+   against the CPU; a deep ensemble of R = 2 for 8 rounds through the
+   round kernel against solo runs; and ``CoherenceSystem.run_traced`` of
+   tests/fixtures/mini on the card (events equal to the CPU's, per-node
+   projection equal to instruction_order.txt);
+8. the message-level engine (async) and its routed delivery: the ring
    exchange kernel (csrc/ring_exchange.cu) against its plain version on
    the outbox lanes of the cycle 64 cycles into async@4096 (D = 4 and
    D = 8), every word equal, with its device time, the plain version's
@@ -263,11 +279,12 @@ def sass_ops(sass: str, function: str, steps: int, w_loops: int,
       pair of BAR.SYNC: the master thread's atomic and spin loop. It is
       left out, as are atomic and fence instructions anywhere. The last
       ``block_barriers`` BAR.SYNC are block barriers after the last grid
-      barrier (the fused sync round's reduction of its counters).
+      barrier (the fused sync rounds' reduction of their counters).
     - Loops are backward branches. The fold's window loops (``w_loops``
-      of them) are the loops nested in another loop (the round kernel's
-      node loops), or the kernel's only loop; each counts ``steps``
-      times, every other instruction once. The round kernel's loops over
+      of them) are the loops nested deepest (in the round kernel's node
+      loops; in the fused sync rounds, node loops inside replica loops),
+      or the kernel's only loop; each counts ``steps`` times, every
+      other instruction once. The round kernel's loops over
       the E directory rows (its claim copy) thus count once per node,
       which undercounts.
     - A forward branch makes the stretch it jumps over data-dependent,
@@ -310,10 +327,14 @@ def sass_ops(sass: str, function: str, steps: int, w_loops: int,
             if to != at and to <= end:     # not the trap, not a tail jump
                 jumps.append((at, to))
     loops = [(to, at) for at, to in jumps if to < at]
-    nested = [lp for lp in loops
-              if any(o != lp and o[0] <= lp[0] and lp[1] <= o[1]
-                     for o in loops)]
-    wl = loops if len(loops) == 1 else nested
+    def depth(lp):
+        return sum(1 for o in loops
+                   if o != lp and o[0] <= lp[0] and lp[1] <= o[1])
+
+    nested = [lp for lp in loops if depth(lp)]
+    deepest = max((depth(lp) for lp in loops), default=0)
+    wl = loops if len(loops) == 1 else [lp for lp in nested
+                                        if depth(lp) == deepest]
     if every_path:
         def count(lp, ok):
             return sum(1 for at, op, _ in ins
@@ -805,11 +826,12 @@ def _fused_vs_plain(name: str, mod, txn_width: int):
         st = _sync_mid_run(cfg, warm)
         args = mod.round_inputs(cfg, st)
         grid = getattr(mod.LIBRARY.load(cfg), f"{name}_grid")
-        if grid(n) <= 0:
+        if grid(1, n) <= 0:
             raise SmokeFailure(f"{name}@{n}: no grid (CUDA error "
-                               f"{-grid(n)})")
-        if n == SYNC_ROUND_BIG and grid(n) != grid(2 * n):
-            raise SmokeFailure(f"{name}@{n}: grid {grid(n)} is not capped")
+                               f"{-grid(1, n)})")
+        if n == SYNC_ROUND_BIG and grid(1, n) != grid(1, 2 * n):
+            raise SmokeFailure(f"{name}@{n}: grid {grid(1, n)} is not "
+                               "capped")
         want = mod.plain_round(*args)
         k_out = flat_outputs(mod.fused_round(*args))
         compare(f"{name}@{n}", k_out, flat_outputs(want))
@@ -817,10 +839,10 @@ def _fused_vs_plain(name: str, mod, txn_width: int):
             f"drain_depth {cfg.drain_depth}, locality "
             f"{cfg.proc_local_permille / 1000}, {warm} rounds in): "
             f"{len(k_out)} outputs bit-identical to plain_round; grid "
-            f"{grid(n)} blocks of 64 for {n} nodes; retired "
+            f"{grid(1, n)} blocks of 64 for {n} nodes; retired "
             f"{int(want[6][1] - args[9][1])}, conflicts "
             f"{int(want[6][7] - args[9][7])}, evictions "
-            f"{int(want[6][8] - args[9][8])}")
+            f"{int(want[6][8] - args[9][8])}; grid {grid(1, n)}")
         if n == N:
             bench = (cfg, st, args, want)
     return bench
@@ -830,66 +852,80 @@ def phase_sync_round_kernel() -> dict:
     """The fused txn_width 1 round against plain_round (drain_depth 16)
     as ``_fused_vs_plain`` says; returns its row, timed and bounded at
     sync@4096."""
-    import torch
-    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
-        sync_burst_kernel as sbk)
     from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
         sync_round_kernel as srk)
     cfg, st, args, _ = _fused_vs_plain("sync_round", srk, 1)
     plain_ms = event_ms(lambda: srk.plain_round(*args), 3)
-    # the burst needs its d hits and the slot that stops it
-    d = sbk.plain_burst(cfg, st.cache_addr, st.cache_val, st.cache_state,
-                        st.idx, st.instr_count)[0]
-    torch.cuda.synchronize()
     return _fused_row("sync_round", srk, cfg, args,
-                      {"burst slots": int((d + 1).sum())}, plain_ms)
+                      round_loops("sync_round", cfg, st), plain_ms)
 
 
 def phase_sync_multi_round_kernel() -> dict:
     """The fused txn_width >= 2 round against plain_round (txn_width 3,
     drain_depth 4) as ``_fused_vs_plain`` says; returns its row, timed
     and bounded at sync@4096."""
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
+        sync_multi_round_kernel as smk)
+    cfg, st, args, _ = _fused_vs_plain("sync_multi_round", smk, 3)
+    plain_ms = event_ms(lambda: smk.plain_round(*args), 3)
+    return _fused_row("sync_multi_round", smk, cfg, args,
+                      round_loops("sync_multi_round", cfg, st), plain_ms)
+
+
+def round_loops(name: str, cfg, st) -> dict:
+    """The iterations that the next round of ``st`` (one machine, or an
+    ensemble: summed over its replicas) needs of the fused kernel's
+    per-node loops. sync_round: the burst's d hits and the slot that
+    stops it. sync_multi_round: the pre-claim fold runs to the step that
+    stops it (that step included), the probe scan over the steps before
+    the stop (it ends early at an unsafe step, which this count does not
+    see), the replay over the steps it retires."""
     import torch
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
+        sync_burst_kernel as sbk)
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import sync_engine as se
     from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
         sync_multi_round_kernel as smk)
     from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
         sync_window_kernel as swk)
-    cfg, st, args, want = _fused_vs_plain("sync_multi_round", smk, 3)
-    plain_ms = event_ms(lambda: smk.plain_round(*args), 3)
-    # the iterations this round's data needs of the kernel's three
-    # window-step loops: the pre-claim fold runs to the step that stops
-    # it (that step included), the probe scan over the steps before the
-    # stop (it ends early at an unsafe step, which this count does not
-    # see), the replay over the steps it retires
+    if st.round.dim() == 1:
+        per = [round_loops(name, cfg, se.ensemble_replica(st, r))
+               for r in range(st.round.shape[0])]
+        return {k: sum(p[k] for p in per) for k in per[0]}
+    if name == "sync_round":
+        d = sbk.plain_burst(cfg, st.cache_addr, st.cache_val,
+                            st.cache_state, st.idx, st.instr_count)[0]
+        return {"burst slots": int((d + 1).sum())}
+    args = smk.round_inputs(cfg, st)
+    retired = smk.plain_round(*args)[6][1] - args[9][1]
     steps, _ = swk._plain_fold(cfg, *swk.round_inputs(cfg, st)[1:])
     before_stop = sum((s["hit_ok"] | s["ok"]).to(torch.int64)
                       for s in steps)
     W = cfg.drain_depth + cfg.txn_width
-    loops = {"fold steps": int(torch.clamp(before_stop + 1, max=W).sum()),
-             "probe steps": int(before_stop.sum()),
-             "replay steps": int(want[6][1] - args[9][1])}
-    torch.cuda.synchronize()
-    return _fused_row("sync_multi_round", smk, cfg, args, loops, plain_ms)
+    return {"fold steps": int(torch.clamp(before_stop + 1, max=W).sum()),
+            "probe steps": int(before_stop.sum()),
+            "replay steps": int(retired)}
 
 
 def _fused_row(name: str, mod, cfg, args, loops: dict,
-               plain_ms: float) -> dict:
+               plain_ms: float, reps: int = 1) -> dict:
     """The row of a fused sync round kernel (module ``mod``, kernel and C
     entry points named after ``name``) timed on ``args`` at ``cfg``: 20
     launches under the profiler, the bound from its bytes and from the
     integer instructions of its SASS (each loop nested in a node loop
     counted for the iterations ``loops`` gives it, in address order, the
     rest once a node), ptxas registers and spills, dynamic and static
-    shared memory read from the library."""
+    shared memory read from the library. ``reps``: the replicas of an
+    ensemble's ``args`` (every byte and node counted ``reps`` times)."""
     kname = f"{name}_kernel"
     ms = kernel_ms(lambda: [mod.fused_round(*args) for _ in range(20)],
                    kname)
     count = sass_ops(kernel_sass(mod.LIBRARY, cfg), kname, 1, len(loops),
-                     barriers=3, block_barriers=1)
+                     barriers=3, block_barriers=2)
     N = cfg.num_nodes
     ops = (sum(per * n for per, n in zip(count["per_step"], loops.values()))
-           + count["once"] * N)
-    io_bytes = sum(mod.io_contract_bytes(cfg))
+           + count["once"] * N * reps)
+    io_bytes = sum(mod.io_contract_bytes(cfg, reps))
     r = row(name, name, ms, plain_ms, io_bytes, ops)
     ptx = next(iter(mod.LIBRARY.ptxas_summary(cfg).values()), {})
     lib = mod.LIBRARY.load(cfg)
@@ -902,15 +938,16 @@ def _fused_row(name: str, mod, cfg, args, loops: dict,
              + ptx.get("spill_loads", 0),
              dynamic_smem_bytes=getattr(lib, f"{name}_smem_bytes")(),
              static_smem_bytes=static_smem)
-    say("kernel", f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
+    say("kernel", f"{name} at R = {reps}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.2f} ms, "
         f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}: {io_bytes} B, "
         f"{ops} integer ops = "
         + " + ".join(f"{n} {what} x {per}" for per, (what, n)
                      in zip(count["per_step"], loops.items()))
-        + f" + N x {count['once']}: {count}); ptxas {ptx}; "
+        + f" + {reps} x N x {count['once']}: {count}); ptxas {ptx}; "
         f"{r['dynamic_smem_bytes']} B of dynamic shared memory a block (the "
         f"launch's), {static_smem} B static (cudaFuncGetAttributes); grid "
-        f"{getattr(lib, f'{name}_grid')(N)} blocks of 64")
+        f"{getattr(lib, f'{name}_grid')(reps, N)} blocks of 64")
     return r
 
 
@@ -1120,6 +1157,283 @@ def phase_sync_main_path(rows: dict) -> None:
         f"instructions a node, seed 0) x 8 rounds: card equal to CPU, "
         f"retired {retired}, invariant {inv} "
         f"({time.perf_counter() - t0:.1f} s)")
+
+
+# -- seed ensembles, the deep round's event record and traced runs ---------
+
+#: the ensemble route's sizes: R machines of the sync bench config
+ENSEMBLE = dict(reps=8, big_reps=64, big_rounds=16)
+MINI = "tests/fixtures/mini"
+
+
+def _seeds_ensemble(cfg, reps: int, device="cuda"):
+    """(ensemble, solo states): ``reps`` fresh machines of ``cfg`` at the
+    bench's trace length, seeds 0 .. reps - 1."""
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import sync_engine as se
+    solos = [se.procedural_state(cfg, BENCH["trace_len"], seed=s,
+                                 device=device) for s in range(reps)]
+    return se.make_ensemble(solos), solos
+
+
+def _replica_equals_solo(ens, r: int, solo, where: str) -> None:
+    """Replica r of ``ens`` equals ``solo`` (its machine run alone through
+    the fused round for as many rounds), every leaf and counter."""
+    from ue22cs343bb1_openmp_assignment_tpu_torch import convert
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import sync_engine as se
+    bad = _leaves_differ(convert.to_numpy(solo),
+                         convert.to_numpy(se.ensemble_replica(ens, r)))
+    if bad:
+        raise SmokeFailure(f"{where}: replica {r} differs from its solo run "
+                           f"in leaf {bad}")
+
+
+def _ensemble_to_quiescence(rows: dict, txn_width: int) -> None:
+    """R = 8 seeds of sync@4096 x 4096 to quiescence through
+    ``run_ensemble_to_quiescence``: one fused launch an ensemble round and
+    no other launch, each replica bit-identical to its solo fused run,
+    the ensemble's ms a round and aggregate instrs/sec against 8 x the
+    solo ms a round, and a torch.profiler window of the route."""
+    import torch
+    from ue22cs343bb1_openmp_assignment_tpu_torch import bench
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import sync_engine as se
+    N, K, R = BENCH["num_nodes"], txn_width, ENSEMBLE["reps"]
+    cfg = sync_cfg(N, K)
+    name = "sync_round" if K == 1 else "sync_multi_round"
+    ens0, solos = _seeds_ensemble(cfg, R)
+    torch.cuda.synchronize()
+    bench.reset_launch_counts()
+    t0 = time.perf_counter()
+    ens = se.run_ensemble_to_quiescence(cfg, ens0, BENCH["chunk"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = bench.launch_counts()
+    rounds = int(ens.round[0])
+    if not bool(ens.quiescent()):
+        raise SmokeFailure(f"ensemble R={R} txn_width {K} did not reach "
+                           "quiescence")
+    others = {k: v for k, v in counts.items() if v and k != name}
+    if counts[name] != rounds or others:
+        raise SmokeFailure(f"ensemble R={R} txn_width {K}: {counts[name]} "
+                           f"{name} launches in {rounds} rounds, others "
+                           f"{others}")
+    rows[name]["ensemble_launches"] = counts[name]
+    retired = int(ens.metrics.instrs_retired.sum())
+    if retired != R * N * BENCH["trace_len"]:
+        raise SmokeFailure(f"ensemble retired {retired}")
+    solo_walls, solo_rounds = [], []
+    for r, st in enumerate(solos):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = se.run_sync_to_quiescence(cfg, st, BENCH["chunk"])
+        torch.cuda.synchronize()
+        solo_walls.append(time.perf_counter() - t0)
+        solo_rounds.append(int(done.round))
+        done = se.run_rounds(cfg, done, rounds - int(done.round))
+        _replica_equals_solo(ens, r, done, f"ensemble txn_width {K}")
+    solo_ms = statistics.median(w * 1e3 / n
+                                for w, n in zip(solo_walls, solo_rounds))
+    mid = se.run_rounds(cfg, solos[0], 16)
+    mid = se.make_ensemble([mid.replace(seed=st.seed) for st in solos])
+    prof = bench.profile_steps(lambda st: se.ensemble_round_step(cfg, st),
+                               mid, PROFILE_ROUNDS["fused round"])
+    rows[name].update(
+        ensemble_ms_per_round=wall * 1e3 / rounds,
+        ensemble_instrs_per_s=retired / wall,
+        solo_ms_per_round_x8=R * solo_ms)
+    say("ensemble", f"sync@{N} x {BENCH['trace_len']}, txn_width {K}, "
+        f"drain_depth {cfg.drain_depth}, R = {R} (seeds 0-{R - 1}) through "
+        f"run_ensemble_to_quiescence: quiescent after {rounds} rounds "
+        f"(solo runs {min(solo_rounds)}-{max(solo_rounds)}), {name} "
+        f"launches {counts[name]}, no other launch; "
+        f"{wall * 1e3 / rounds:.4f} ms/ensemble round, "
+        f"{retired / wall:.6g} instrs/sec in all, wall {wall:.2f} s; solo "
+        f"fused runs {solo_ms:.4f} ms/round (median of {R}), 8 x solo "
+        f"{R * solo_ms:.4f} ms; every replica bit-identical to its solo "
+        f"run; profile of {PROFILE_ROUNDS['fused round']} ensemble rounds: "
+        f"{prof['device_launches_per_round']:.2f} device launches, busy "
+        f"{prof['device_busy_ms_per_round']:.4f} ms, idle share "
+        f"{prof['device_idle_share']:.3f}, "
+        f"{prof['wall_ms_per_round']:.4f} ms/round under the profiler, "
+        f"kernels {prof['kernel_ms_per_round']}")
+
+
+def _ensemble_kernel_rows(rows: dict, txn_width: int) -> None:
+    """The replica axis against the plain version at R = 8 on mid-run
+    inputs (8 seeds, 8 plain rounds in), then R = 64 x 4096 nodes for
+    ENSEMBLE["big_rounds"] rounds (more work items than resident
+    threads): replicas 0, 21, 42 and 63 equal to their solo runs, and
+    the kernel timed on the last round's inputs. Adds the R = 8 and
+    R = 64 times, bounds and plain times to the solo row."""
+    import torch
+    from ue22cs343bb1_openmp_assignment_tpu_torch import bench
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import sync_engine as se
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
+        sync_multi_round_kernel as smk)
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
+        sync_round_kernel as srk)
+    N, K = BENCH["num_nodes"], txn_width
+    cfg = sync_cfg(N, K)
+    name, mod = (("sync_round", srk) if K == 1
+                 else ("sync_multi_round", smk))
+    R = ENSEMBLE["reps"]
+    _, solos = _seeds_ensemble(cfg, R)
+    ens = se.make_ensemble([se.run_rounds(cfg, st, 8, fold_impl="plain")
+                            for st in solos])
+    args = mod.round_inputs(cfg, ens)
+    compare(f"{name} R={R}", flat_outputs(mod.fused_round(*args)),
+            flat_outputs(mod.plain_round(*args)))
+    plain_ms = event_ms(lambda: mod.plain_round(*args), 2)
+    r8 = _fused_row(name, mod, cfg, args, round_loops(name, cfg, ens),
+                    plain_ms, reps=R)
+
+    big = ENSEMBLE["big_reps"]
+    ens0, solos = _seeds_ensemble(cfg, big)
+    torch.cuda.synchronize()
+    bench.reset_launch_counts()
+    t0 = time.perf_counter()
+    ens = ens0
+    for _ in range(ENSEMBLE["big_rounds"]):
+        ens = se.ensemble_round_step(cfg, ens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = bench.launch_counts()
+    if counts[name] != ENSEMBLE["big_rounds"] or any(
+            v for k, v in counts.items() if k != name):
+        raise SmokeFailure(f"R={big}: launches {counts}")
+    for r in (0, 21, 42, 63):
+        solo = se.run_rounds(cfg, solos[r], ENSEMBLE["big_rounds"])
+        _replica_equals_solo(ens, r, solo, f"R={big} txn_width {K}")
+    args = mod.round_inputs(cfg, ens)
+    r64 = _fused_row(name, mod, cfg, args, round_loops(name, cfg, ens),
+                     float("nan"), reps=big)
+    rows[name].update(
+        r8_ms=r8["ms"], r8_bound_ms=r8["bound_ms"],
+        r8_bound_by=r8["bound_by"], r8_plain_ms=plain_ms,
+        r64_ms=r64["ms"], r64_bound_ms=r64["bound_ms"],
+        r64_bound_by=r64["bound_by"],
+        r64_ms_per_round=wall * 1e3 / ENSEMBLE["big_rounds"])
+    say("ensemble", f"{name} at R = {big} x {N} nodes ({big * N} in all), "
+        f"{ENSEMBLE['big_rounds']} rounds: one launch a round, "
+        f"{wall * 1e3 / ENSEMBLE['big_rounds']:.4f} ms/ensemble round; "
+        f"replicas 0, 21, 42, 63 bit-identical to their solo runs; grid "
+        f"{getattr(mod.LIBRARY.load(cfg), name + '_grid')(big, N)} blocks")
+
+
+def _ensemble_card_vs_cpu() -> None:
+    """256 nodes, R = 3, 64 rounds: the kernels' replica axis on the card
+    against the plain version on the CPU, every leaf equal."""
+    from ue22cs343bb1_openmp_assignment_tpu_torch import convert
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import sync_engine as se
+    for K in (3, 1):
+        t0 = time.perf_counter()
+        cfg = sync_cfg(256, K)
+        out = {}
+        for dev in ("cuda", "cpu"):
+            ens, _ = _seeds_ensemble(cfg, 3, dev)
+            for _ in range(64):
+                ens = se.ensemble_round_step(cfg, ens)
+            out[dev] = convert.to_numpy(ens)
+        bad = _leaves_differ(out["cpu"], out["cuda"])
+        if bad:
+            raise SmokeFailure(f"ensemble txn_width {K}: card and CPU "
+                               f"differ in leaf {bad}")
+        say("card-vs-cpu", f"ensemble R = 3 x 256 nodes, txn_width {K}, 64 "
+            f"rounds: the replica axis on the card equal to the plain "
+            f"rounds on the CPU, {len(out['cpu'])} leaves "
+            f"({time.perf_counter() - t0:.1f} s)")
+
+
+def _seed_sweep_card_vs_cpu() -> None:
+    """The stored-trace seed sweep (``utils.search.match_accepted``) on
+    tests/fixtures/mini over seeds 0-7, accepted runs made from the CPU's
+    replica dumps of seeds 0 and 5: the card's map equals the CPU's."""
+    import pathlib
+    from ue22cs343bb1_openmp_assignment_tpu_torch.config import SystemConfig
+    from ue22cs343bb1_openmp_assignment_tpu_torch.state import init_state
+    from ue22cs343bb1_openmp_assignment_tpu_torch.utils import search, trace
+    cfg = SystemConfig.reference()
+    mini = pathlib.Path(__file__).resolve().parent / MINI
+    traces = trace.load_test_dir(str(mini), cfg.num_nodes, cfg.max_instrs)
+    cpu = init_state(cfg, traces, device="cpu")
+    ens = search.sweep_seeds(cfg, cpu, [0, 5])
+    accepted = [search.replica_dumps(cfg, ens, r) for r in range(2)]
+    want = search.match_accepted(cfg, cpu, accepted, seeds=range(8))
+    got = search.match_accepted(cfg, init_state(cfg, traces, device="cuda"),
+                                accepted, seeds=range(8))
+    if got != want or got.get(0) != 0:
+        raise SmokeFailure(f"seed sweep on {MINI}: card {got}, CPU {want}")
+    say("card-vs-cpu", f"seed sweep of {MINI} over seeds 0-7 (stored "
+        f"traces, one ensemble): card map {got} equal to the CPU's")
+
+
+def _deep_ensemble() -> None:
+    """R = 2 of deep@4096 through the fused round for 8 rounds (each
+    replica its own round kernel launch a round): each replica equal to
+    its solo fused run."""
+    import torch
+    from ue22cs343bb1_openmp_assignment_tpu_torch import bench
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import sync_engine as se
+    cfg = bench_cfg(BENCH["num_nodes"], True)
+    ens, solos = _seeds_ensemble(cfg, 2)
+    torch.cuda.synchronize()
+    bench.reset_launch_counts()
+    for _ in range(8):
+        ens = se.ensemble_round_step(cfg, ens)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in bench.launch_counts().items() if v}
+    if counts != {"round": 16}:
+        raise SmokeFailure(f"deep ensemble R=2 x 8 rounds: launches {counts}")
+    for r, st in enumerate(solos):
+        _replica_equals_solo(ens, r, se.run_rounds(cfg, st, 8),
+                             "deep ensemble")
+    say("ensemble", f"deep@{BENCH['num_nodes']} R = 2 x 8 rounds through the "
+        f"round kernel: launches {counts} (one a replica and round), each "
+        f"replica bit-identical to its solo fused run")
+
+
+def _traced_mini() -> None:
+    """``CoherenceSystem.run_traced`` of tests/fixtures/mini on the card:
+    events equal to the CPU's, and the per-node projection of its lines
+    equal to the fixture's instruction_order.txt."""
+    import pathlib
+    import numpy as np
+    from ue22cs343bb1_openmp_assignment_tpu_torch.models.system import (
+        CoherenceSystem)
+    from ue22cs343bb1_openmp_assignment_tpu_torch.utils import eventlog
+    mini = pathlib.Path(__file__).resolve().parent / MINI
+    runs = {dev: CoherenceSystem.from_test_dir(str(mini), device=dev)
+            .run_traced() for dev in ("cuda", "cpu")}
+    (card, ev), (_, want) = runs["cuda"], runs["cpu"]
+    if sorted(ev) != sorted(want) or any(
+            not np.array_equal(ev[k], want[k]) for k in want):
+        raise SmokeFailure("traced mini run: card events differ from CPU's")
+    fixture = (mini / "instruction_order.txt").read_text().splitlines()
+    lines = eventlog.to_lines(ev)
+    if eventlog.per_node_projection(lines) != (
+            eventlog.per_node_projection(fixture)):
+        raise SmokeFailure("traced mini run: per-node projection differs "
+                           "from instruction_order.txt")
+    say("traced", f"{MINI} run_traced on the card: {len(lines)} instruction "
+        f"lines over {ev['fetch'].shape[0]} cycles, events equal to the "
+        f"CPU's, per-node projection equal to instruction_order.txt; "
+        f"quiescent {card.quiescent}")
+
+
+def phase_ensembles(rows: dict) -> None:
+    """This slice's paths: the ensemble route at the sync bench defaults
+    (txn_width 3 / drain_depth 4 and txn_width 1 / drain_depth 16), its
+    kernel rows, card against CPU, the stored-trace seed sweep, a deep
+    ensemble and a traced run."""
+    t0 = time.perf_counter()
+    for K in (3, 1):
+        _ensemble_to_quiescence(rows, K)
+        _ensemble_kernel_rows(rows, K)
+    _ensemble_card_vs_cpu()
+    _seed_sweep_card_vs_cpu()
+    _deep_ensemble()
+    _traced_mini()
+    say("ensemble", f"ensemble, sweep and traced phases took "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 # -- the message-level engine and its routed delivery ----------------------
@@ -1424,6 +1738,7 @@ def main() -> int:
         rows["sync_multi_round"] = phase_sync_multi_round_kernel()
         phase_sync_card_vs_cpu()
         phase_sync_main_path(rows)
+        phase_ensembles(rows)
         rows["ring"] = phase_ring_kernel()
         phase_async_card_vs_cpu()
         phase_async_main_path(rows)

@@ -1,7 +1,7 @@
 """The CUDA kernels (the deep fold, the fused round, the sync window
 engine's window, replay and burst kernels, its fused txn_width 1 and
-txn_width >= 2 rounds, and the routed transport's ring exchange) against
-their plain versions, on the card.
+txn_width >= 2 rounds with their replica axis, and the routed
+transport's ring exchange) against their plain versions, on the card.
 
 Marked ``cuda``: each test skips without a card (decided inside the
 fixture, never at import). The card machine has no JAX, so run this file
@@ -275,7 +275,7 @@ def test_fused_sync_round_equals_plain_round(card, case):
     assert srk.supported(cfg)
     lib = srk.LIBRARY.load(cfg)
     if n > 4096:
-        assert lib.sync_round_grid(n) == lib.sync_round_grid(2 * n)
+        assert lib.sync_round_grid(1, n) == lib.sync_round_grid(1, 2 * n)
     # the kernel's block partials are static; it takes no dynamic smem
     assert lib.sync_round_smem_bytes() == 0
     assert lib.sync_round_static_smem_bytes() > 0
@@ -358,7 +358,8 @@ def test_fused_multi_round_equals_plain_round(card, case):
     assert smk.supported(cfg)
     lib = smk.LIBRARY.load(cfg)
     if n > 4096:
-        assert lib.sync_multi_round_grid(n) == lib.sync_multi_round_grid(2 * n)
+        assert lib.sync_multi_round_grid(1, n) == (
+            lib.sync_multi_round_grid(1, 2 * n))
     # the kernel's block partials are static; it takes no dynamic smem
     assert lib.sync_multi_round_smem_bytes() == 0
     assert lib.sync_multi_round_static_smem_bytes() > 0
@@ -431,6 +432,58 @@ def test_fused_multi_round_wrapper_refuses_bad_operands(card):
                          device=card)[1:].view(256, 4)   # cache_val
     with pytest.raises(ValueError, match="16-byte"):
         smk.fused_round(*bad)
+
+
+#: the fused rounds' replica axis: (txn_width, drain_depth, overrides)
+REPLICA = {
+    "k1-h16": (1, 16, {}),
+    "k1-h4-l300": (1, 4, dict(proc_local_permille=300)),
+    "k3-h4": (3, 4, {}),
+    "k3-h4-l300": (3, 4, dict(proc_local_permille=300)),
+}
+
+
+@pytest.mark.parametrize("reps", [1, 8])
+@pytest.mark.parametrize("case", list(REPLICA))
+def test_fused_rounds_replica_axis_equals_plain_round(card, case, reps):
+    """An ensemble of R machines (seeds and rounds all different) through
+    one launch a round, held to the plain round of each replica."""
+    K, H, kw = REPLICA[case]
+    cfg = _sync_cfg(256, K, H, **kw)
+    mod = srk if K == 1 else smk
+    ens = se.make_ensemble([
+        se.run_rounds(cfg, se.procedural_state(cfg, 4096, seed=s,
+                                               device=card), 4 + s,
+                      fold_impl="plain") for s in range(reps)])
+    for _ in range(3):
+        args = mod.round_inputs(cfg, ens)
+        before = mod.fused_round.launches
+        got = mod.fused_round(*args)
+        assert mod.fused_round.launches == before + 1
+        for a, b in zip(got, mod.plain_round(*args)):
+            assert a.shape == b.shape and torch.equal(a, b)
+        ens = mod.round_step_fused(cfg, ens)
+    assert bool((ens.metrics.conflicts > 0).all())
+
+
+@pytest.mark.parametrize("K,H", [(1, 16), (3, 4)])
+def test_ensemble_to_quiescence_equals_solo_runs(card, K, H):
+    """run_ensemble_to_quiescence at R = 8 on the card: one launch a
+    round, each replica equal to its solo run of as many rounds."""
+    cfg = _sync_cfg(512, K, H, proc_local_permille=500)
+    mod = srk if K == 1 else smk
+    solos = [se.procedural_state(cfg, 64, seed=s, device=card)
+             for s in range(8)]
+    before = mod.fused_round.launches
+    ens = se.run_ensemble_to_quiescence(cfg, se.make_ensemble(solos), 8)
+    rounds = int(ens.round[0])
+    assert mod.fused_round.launches - before == rounds > 0
+    assert bool(ens.quiescent())
+    for r, st in enumerate(solos):
+        want = convert.to_numpy(se.run_rounds(cfg, st, rounds))
+        got = convert.to_numpy(se.ensemble_replica(ens, r))
+        for name in want:
+            assert (want[name] == got[name]).all(), (r, name)
 
 
 # -- the message-level engine: the ring exchange and routed delivery ---------

@@ -48,6 +48,15 @@ def test_importing_the_port_loads_no_jax():
     assert out.stdout.strip() == "[]", out.stdout
 
 
+def test_scans_cover_the_copied_modules():
+    """The port's copies of the JAX package's jax-free modules are among
+    the modules both checks above import and scan."""
+    mods = {m for m, _ in _port_modules()}
+    for copy in ("utils.search", "utils.eventlog", "utils.golden",
+                 "utils.trace", "config", "types", "codec"):
+        assert f"{PKG}.{copy}" in mods, copy
+
+
 @pytest.mark.parametrize("path", [p for _, p in _port_modules()]
                          + [ROOT / "chip_smoke.py"],
                          ids=lambda p: p.name)
@@ -78,18 +87,23 @@ def test_entry_points_need_the_card_unless_asked_for_cpu(monkeypatch):
 
 
 def test_non_deep_configs_name_the_later_slice():
-    """Non-deep configs run since the sync window engine was ported;
-    what still waits for a later slice says so."""
+    """Non-deep configs run since the sync window engine was ported, the
+    deep round's event record and the ensembles since slice 8; what
+    still waits for a later slice says so, or is absent."""
     _, cfg = cfg_pair(8, procedural="uniform", max_instrs=1)
     st = se.procedural_state(cfg, 4, device="cpu")
     assert int(se.round_step(cfg, st).round) == 1
     _, deep = cfg_pair(8, **BENCH_DEEP)
+    out, ev = se.round_step(deep, se.procedural_state(deep, 4, device="cpu"),
+                            with_events=True)
+    assert int(out.round) == 1 and ev["retired"].shape == (8, 16)
+    for ported in ("make_ensemble", "run_ensemble_to_quiescence",
+                   "from_sim_state"):
+        assert hasattr(se, ported)
+    assert not hasattr(se, "run_sync_profile")
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import step
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        se.round_step(deep, se.procedural_state(deep, 4, device="cpu"),
-                      with_events=True)
-    for later in ("make_ensemble", "run_ensemble_to_quiescence",
-                  "run_sync_profile"):
-        assert not hasattr(se, later)
+        step.cycle(cfg, None, with_telemetry=True)
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

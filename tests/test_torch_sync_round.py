@@ -30,6 +30,8 @@ from ue22cs343bb1_openmp_assignment_tpu.utils import eventlog as jeventlog
 from ue22cs343bb1_openmp_assignment_tpu.utils import trace as jtrace
 from ue22cs343bb1_openmp_assignment_tpu_torch import convert
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
+    deep_round_kernel as drk)
+from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
     sync_burst_kernel as sbk)
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import sync_engine as tse
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
@@ -155,7 +157,8 @@ def test_round_step_dispatch(monkeypatch):
     """pallas_burst routes procedural rounds without events through the
     kernel modules (the fused rounds; at txn_width 1 the burst kernel
     where the fused round does not take the config); stored traces and
-    event tracing keep the plain rounds, as in JAX."""
+    event tracing keep the plain rounds, and a deep round with events
+    the fold path, as in JAX."""
     seen = []
     monkeypatch.setattr(smk, "round_step_fused",
                         lambda cfg, st, impl: seen.append(("multi", impl))
@@ -195,10 +198,16 @@ def test_round_step_dispatch(monkeypatch):
     assert len(seen) == 5
     with pytest.raises(ValueError, match="fold_impl"):
         tse.round_step(multi, st, "xla")
-    _, deep = cfg_pair(16, **dict(PROC, deep_window=True))
-    with pytest.raises(NotImplementedError, match="event record"):
-        tse.round_step(deep, tse.procedural_state(deep, 8, device="cpu"),
-                       with_events=True)
+    # the deep round's event record comes from the fold path, never the
+    # fused round (tests/test_torch_traced.py holds it to JAX's)
+    _, deep = cfg_pair(16, **dict(PROC, deep_window=True, fused_round=True))
+    monkeypatch.setattr(drk, "round_step_deep_fused",
+                        lambda *a: pytest.fail("the fused deep round ran"))
+    out, ev = tse.round_step(deep, tse.procedural_state(deep, 8,
+                                                        device="cpu"),
+                             with_events=True)
+    W = deep.drain_depth + deep.txn_width
+    assert int(out.round) == 1 and ev["retired"].shape == (16, W)
 
 
 @pytest.mark.parametrize("txn_width", [1, 2])

@@ -11,10 +11,24 @@
 // ops/sync_multi_round_kernel.plain_round does in plain PyTorch
 // (ops/sync_engine._round_step_multi's tensor code):
 //
-//   in:  cache_addr/val/state [n, C], read in place (no transposes),
-//        dm [E, 7], idx and instr_count [n], round and seed (0-d), the
-//        11 metric counters [11];
+//   in:  cache_addr/val/state [R, n, C], read in place (no transposes),
+//        dm [R, E, 7], idx and instr_count [R, n], round and seed [R],
+//        the 11 metric counters [R, 11];
 //   out: the cache planes, dm, idx, round + 1 and the counters.
+//
+// R is the replica axis of a seed ensemble (ops/sync_engine.
+// ensemble_round_step): R independent machines in one launch, between
+// the same three grid barriers; one machine is R = 1, the same entry
+// point and the same code. As in csrc/sync_round.cu, blocks are given to
+// replicas (csrc/sync_round.cuh Team), a row of a 2-D grid a replica:
+// each row serves one replica's nodes while the grid holds them all at
+// one node a thread, else the resident blocks split evenly over the
+// replicas. Every phase runs on
+// one replica's view of the operands (replica()): its claims, commits
+// and fan-out stay inside its own dm, its cv_pre plane and its slot and
+// probe records are its own part of the scratch, its keys come from its
+// own round and seed, and its counters are summed by blocks that serve
+// it alone.
 //
 // The fold body is csrc/sync_window.cuh's swin::Fold (one node a
 // thread, the procedural hash inline); the claim key, the dm copy, the
@@ -24,8 +38,9 @@
 // Phases (each "|" is a grid barrier, cooperative_groups::this_grid()
 // .sync(); the launch is cooperative, so every block is resident):
 //
-//   P0  the grid copies dm to dm_out in 16-byte words; block 0 writes
-//       round + 1 and the counters with rounds + 1 |
+//   P0  the grid copies every replica's dm to dm_out in 16-byte words,
+//       and writes each replica's round + 1 and its counters with
+//       rounds + 1 |
 //   P1  per node: the pre-claim window fold (sync_engine.window_fold)
 //       on the round-start cache, up to the step that stops it; each
 //       admitted transaction's slot record (entries, values, flags,
@@ -50,8 +65,10 @@
 //       output planes, idx + n_ret |
 //   P3  per node: the fan-out on the output planes (csrc/sync_round.cuh
 //       fan_out_line: kill, downgrade, promote, DM_OWNER on promotion);
-//       then the block's sums of the 10 metric deltas, one integer
-//       atomicAdd a counter and block (order-free, deterministic).
+//       then the block's sums of a replica's 10 metric deltas (P2
+//       leaves a node's eight in two scratch words, the fan-out adds
+//       the other two), one integer atomicAdd a counter and block
+//       (order-free, deterministic).
 //
 // Why P2 needs no barrier inside it. P2 writes whole dm rows and the
 // node's own output cache planes; it reads claim words, rows, its own
@@ -94,6 +111,11 @@
 // - The output cache planes are written in P2 by their own node only and
 //   read in P3, after a barrier.
 //
+// The argument holds for each replica of a launch: replicas share no
+// row of dm, of the cache planes or of the scratch (a replica's entries
+// are clipped into its own [0, E)), so no node reads what another
+// replica's nodes write.
+//
 // P3 reads DM_ACT and DM_REQ and writes DM_OWNER, different words, and
 // each node writes only its own cache lines; a promoted entry has one
 // holder left (the directory is exact), so its DM_OWNER has one writer.
@@ -102,10 +124,11 @@
 // committed row). Three grid barriers.
 //
 // Per-node values that cross a barrier go through scratch in device
-// memory ([R_ROWS, n], written and read by the same thread, coalesced;
-// the cv_pre plane is read by other nodes too), so a thread can run
-// several nodes: the grid is the resident blocks (cached occupancy
-// query), one node a thread while the nodes fit, larger machines loop.
+// memory ([R_ROWS, n] a replica, written and read by the same thread,
+// coalesced; the cv_pre plane is read by other nodes of the replica too),
+// so a thread can run several nodes: the grid is the resident blocks
+// (cached occupancy query), one node a thread while the nodes fit,
+// larger machines and ensembles loop.
 //
 // What bounds it on the H100: bytes. At sync@4096 (C 4, K 3, W 7) the
 // launch must move dm in and out (65,536 rows of 28 B each way, 3.67 MB)
@@ -114,8 +137,8 @@
 // select chains over C lines and K table entries, a few hundred
 // instructions a step) and the middle's few hundred a node. What it
 // takes is the slowest node's two dependent fold chains, three grid
-// barriers and the dm copy. Its times beside its bound are in PERF.md,
-// section 6.
+// barriers and the dm copy. An ensemble of R moves R times the bytes in
+// one launch. Its times beside its bound are in PERF.md, section 6.
 //
 // Semantics kept from JAX's int32: shifts of signed values whose result
 // may wrap (round << 2, the key) go through uint32_t; the arithmetic >>
@@ -162,28 +185,13 @@ constexpr int R_SLOT = 0;
 constexpr int R_STEP = N_SF * K;
 constexpr int R_CVP = R_STEP + W;  // cv_pre, C rows ([C, n] plane)
 constexpr int R_META = R_CVP + C;  // n_txn | steps before the stop << 8
-constexpr int R_ROWS = R_META + 1;
+// P2's metric deltas of the node, a byte each (every one is at most W):
+constexpr int R_CNT0 = R_META + 1;  // n_ret | rh << 8 | wh << 16 | ev << 24
+constexpr int R_CNT1 = R_META + 2;  // rd | wr << 8 | up << 16 | conf << 24
+constexpr int R_ROWS = R_META + 3;
 
-struct Args {
-  const int* ca;       // [n, C] round-start cache
-  const int* cv;
-  const int* cs;
-  const int* dm;       // [E, 7]
-  const int* idx;      // [n]
-  const int* cnt;      // [n] trace length
-  const int* round;    // 0-d
-  const int* seed;     // 0-d
-  const int* metrics;  // [11]
-  int* ca_o;           // [n, C]
-  int* cv_o;
-  int* cs_o;
-  int* dm_o;           // [E, 7]
-  int* idx_o;          // [n]
-  int* round_o;        // 0-d
-  int* metrics_o;      // [11]
-  int* scratch;        // [R_ROWS, n]
-  int n;
-};
+// The phases take one replica's view (replica()): n nodes, round and
+// seed 0-d, scratch [R_ROWS, n].
 
 __device__ __forceinline__ int& slot(const Args& a, int field, int j,
                                      int node) {
@@ -240,10 +248,10 @@ __device__ __forceinline__ void phase_window(const Args& a, const Keys& k,
   a.scratch[(size_t)R_META * n + node] = f.n_txn | (steps << 8);
 }
 
-// P2 for one node: verdicts, outcomes, commit, then the replay.
+// P2 for one node: verdicts, outcomes, commit, then the replay; its
+// metric deltas go to scratch for P3.
 __device__ __forceinline__ void phase_commit(const Args& a, const Keys& k,
-                                             int round, int node, int E,
-                                             int (&acc)[N_DELTAS]) {
+                                             int round, int node, int E) {
   const int n = a.n;
   const int meta = a.scratch[(size_t)R_META * n + node];
   const int n_txn = meta & 0xFF, steps = meta >> 8;
@@ -348,6 +356,7 @@ __device__ __forceinline__ void phase_commit(const Args& a, const Keys& k,
   // the transaction outcomes, the release composition, the commit
   const int rtag = (int)((uint32_t)round << 2);
   int fill_state[K], fill_val[K];
+  int n_rd = 0, n_wr = 0, n_up = 0, n_conf = 0, n_ev = 0;
 #pragma unroll
   for (int j = 0; j < K; ++j) {
     const bool rd_w = commit[j] && rd[j], wr_w = commit[j] && wr[j],
@@ -417,12 +426,12 @@ __device__ __forceinline__ void phase_commit(const Args& a, const Keys& k,
     }
     fill_state[j] = rd[j] ? (d_u[j] ? EXC : SHD) : MOD;
     fill_val[j] = rd[j] ? (d_em[j] ? val_o : d1m[j]) : val[j];
-    acc[M_RD] += rd_w ? 1 : 0;
-    acc[M_WR] += wr_w ? 1 : 0;
-    acc[M_UP] += up_w ? 1 : 0;
+    n_rd += rd_w ? 1 : 0;
+    n_wr += wr_w ? 1 : 0;
+    n_up += up_w ? 1 : 0;
     // conflicts count claim-arbitration losses only
-    acc[M_CONF] += (ex[j] && !win[j]) ? 1 : 0;
-    acc[M_EV] += ev ? 1 : 0;
+    n_conf += (ex[j] && !win[j]) ? 1 : 0;
+    n_ev += ev ? 1 : 0;
   }
 
   // the replay: the retired prefix applied to the round-start cache
@@ -468,15 +477,21 @@ __device__ __forceinline__ void phase_commit(const Args& a, const Keys& k,
   store_row(a.cv_o, node, cv_c);
   store_row(a.cs_o, node, cs_c);
   a.idx_o[node] = (int)((uint32_t)idx + (uint32_t)n_ret);
-  acc[M_RET] += n_ret;
-  acc[M_RH] += rh;
-  acc[M_WH] += wh;
+  a.scratch[(size_t)R_CNT0 * n + node] =
+      n_ret | (rh << 8) | (wh << 16) | (n_ev << 24);
+  a.scratch[(size_t)R_CNT1 * n + node] =
+      n_rd | (n_wr << 8) | (n_up << 16) | (n_conf << 24);
 }
 
-// P3 for one node: the fan-out over its replayed lines.
+// P3 for one node: the fan-out over its replayed lines, and P2's metric
+// deltas.
 __device__ __forceinline__ void phase_fanout(const Args& a, int round,
                                              int node, int E,
                                              int (&acc)[N_DELTAS]) {
+  // the scratch words first: the fan-out's DM_OWNER stores may alias
+  // them as far as the compiler knows, so loads after it would wait
+  const int c0 = a.scratch[(size_t)R_CNT0 * a.n + node];
+  const int c1 = a.scratch[(size_t)R_CNT1 * a.n + node];
   int ca[C], cs[C];
   load_row<false>(a.ca_o, node, ca);
   load_row<false>(a.cs_o, node, cs);
@@ -484,34 +499,64 @@ __device__ __forceinline__ void phase_fanout(const Args& a, int round,
   for (int c = 0; c < C; ++c)
     fan_out_line(a.dm_o, E, round, node, ca[c], cs[c], acc);
   store_row(a.cs_o, node, cs);
+  acc[M_RET] += c0 & 0xFF;
+  acc[M_RH] += (c0 >> 8) & 0xFF;
+  acc[M_WH] += (c0 >> 16) & 0xFF;
+  acc[M_EV] += (c0 >> 24) & 0xFF;
+  acc[M_RD] += c1 & 0xFF;
+  acc[M_WR] += (c1 >> 8) & 0xFF;
+  acc[M_UP] += (c1 >> 16) & 0xFF;
+  acc[M_CONF] += (c1 >> 24) & 0xFF;
 }
 
 __global__ void __launch_bounds__(BLOCK) sync_multi_round_kernel(Args a) {
   cg::grid_group grid = cg::this_grid();
   const int n = a.n, E = (int)((uint32_t)n << SW_BLOCK_BITS);
-  const int first = blockIdx.x * BLOCK + threadIdx.x;
-  const int stride = gridDim.x * BLOCK;
-  const int round = __ldg(a.round);
-  const Keys k = make_keys(round, __ldg(a.seed));
-  int acc[N_DELTAS];
-#pragma unroll
-  for (int j = 0; j < N_DELTAS; ++j) acc[j] = 0;
+  // the block's first replica's round and keys, read before the dm
+  // copy; Team comes from the launch's indices, taken afresh in each
+  // phase rather than kept across the barriers
+  const RoundKeys first = round_keys(a.round, a.seed, team<BLOCK>().group);
+  Team t;
 
-  copy_dm(a.dm, a.dm_o, (size_t)E * DM_COLS, first, stride);
-  start_counters(a.metrics, a.metrics_o, round, a.round_o, first);
+  copy_dm(a.dm, a.dm_o, (size_t)a.reps * E * DM_COLS, grid_first<BLOCK>(),
+          grid_threads<BLOCK>());
+  start_counters(a, grid_first<BLOCK>(), grid_threads<BLOCK>());
   grid.sync();
+  t = team<BLOCK>();
 #pragma unroll 1
-  for (int node = first; node < n; node += stride)
-    phase_window(a, k, node, E);
+  for (int r = t.group; r < a.reps; r += t.groups) {
+    const Args v = replica<C, R_ROWS>(a, r, E);
+    const RoundKeys rk =
+        r == t.group ? first : round_keys(a.round, a.seed, r);
+#pragma unroll 1
+    for (int node = t.node0; node < n; node += t.nstride)
+      phase_window(v, rk.k, node, E);
+  }
   grid.sync();
+  t = team<BLOCK>();
 #pragma unroll 1
-  for (int node = first; node < n; node += stride)
-    phase_commit(a, k, round, node, E, acc);
+  for (int r = t.group; r < a.reps; r += t.groups) {
+    const Args v = replica<C, R_ROWS>(a, r, E);
+    const RoundKeys rk =
+        r == t.group ? first : round_keys(a.round, a.seed, r);
+#pragma unroll 1
+    for (int node = t.node0; node < n; node += t.nstride)
+      phase_commit(v, rk.k, rk.round, node, E);
+  }
   grid.sync();
+  t = team<BLOCK>();
 #pragma unroll 1
-  for (int node = first; node < n; node += stride)
-    phase_fanout(a, round, node, E, acc);
-  add_counters<BLOCK>(acc, a.metrics_o);
+  for (int r = t.group; r < a.reps; r += t.groups) {
+    const Args v = replica<C, R_ROWS>(a, r, E);
+    const int round = r == t.group ? first.round : __ldg(v.round);
+    int acc[N_DELTAS];
+#pragma unroll
+    for (int j = 0; j < N_DELTAS; ++j) acc[j] = 0;
+#pragma unroll 1
+    for (int node = t.node0; node < n; node += t.nstride)
+      phase_fanout(v, round, node, E, acc);
+    flush_counters<BLOCK>(acc, v.metrics_o);
+  }
 }
 
 Grid<BLOCK, MAX_BLOCKS_PER_SM, SMEM_BYTES> the_grid;
@@ -521,9 +566,10 @@ Grid<BLOCK, MAX_BLOCKS_PER_SM, SMEM_BYTES> the_grid;
 // Plain C entry points (bound with ctypes).
 extern "C" {
 
-// int32 elements of the scratch buffer the kernel needs for n nodes
-long long sync_multi_round_scratch_ints(int n) {
-  return (long long)R_ROWS * n;
+// int32 elements of the scratch buffer the kernel needs for reps
+// replicas of n nodes
+long long sync_multi_round_scratch_ints(int reps, int n) {
+  return (long long)R_ROWS * n * reps;
 }
 
 // dynamic shared memory a block that the occupancy query and the
@@ -539,31 +585,35 @@ int sync_multi_round_static_smem_bytes() {
   return e == cudaSuccess ? (int)attr.sharedSizeBytes : -(int)e;
 }
 
-// the grid the launch for n nodes uses (>= 1), or -(CUDA error)
-int sync_multi_round_grid(int n) {
-  int grid = 0;
+// the grid the launch for reps replicas of n nodes uses (>= 1), or
+// -(CUDA error)
+int sync_multi_round_grid(int reps, int n) {
+  dim3 grid;
   const int err =
-      the_grid.grid_for(sync_multi_round_kernel, n > 0 ? n : 1, &grid);
-  return err ? -err : grid;
+      the_grid.grid_for(sync_multi_round_kernel, reps > 0 ? reps : 1,
+                        n > 0 ? n : 1, &grid);
+  return err ? -err : (int)(grid.x * grid.y);
 }
 
-// One round, launched cooperatively on `stream` without synchronising;
-// returns the launch's CUDA error (0 on success). n >= 1.
+// One round of reps machines of n nodes each, launched cooperatively on
+// `stream` without synchronising; returns the launch's CUDA error (0 on
+// success). reps >= 1, n >= 1.
 int sync_multi_round(const int* ca, const int* cv, const int* cs,
                      const int* dm, const int* idx, const int* cnt,
                      const int* round, const int* seed, const int* metrics,
                      int* ca_o, int* cv_o, int* cs_o, int* dm_o, int* idx_o,
-                     int* round_o, int* metrics_o, int* scratch, int n,
-                     void* stream) {
-  if (n <= 0) return (int)cudaErrorInvalidValue;
-  int grid = 0;
-  const int err = the_grid.grid_for(sync_multi_round_kernel, n, &grid);
+                     int* round_o, int* metrics_o, int* scratch, int reps,
+                     int n, void* stream) {
+  if (n <= 0 || reps <= 0) return (int)cudaErrorInvalidValue;
+  dim3 grid;
+  const int err = the_grid.grid_for(sync_multi_round_kernel, reps, n, &grid);
   if (err) return err;
-  Args a = {ca,   cv,   cs,   dm,    idx,     cnt,       round,   seed, metrics,
-            ca_o, cv_o, cs_o, dm_o, idx_o, round_o, metrics_o, scratch, n};
+  Args a = {ca,    cv,      cs,        dm,      idx,  cnt,  round,
+            seed,  metrics, ca_o,      cv_o,    cs_o, dm_o, idx_o,
+            round_o, metrics_o, scratch, n,     reps};
   void* args[] = {&a};
   const cudaError_t e = cudaLaunchCooperativeKernel(
-      (const void*)sync_multi_round_kernel, dim3(grid), dim3(BLOCK), args, SMEM_BYTES,
+      (const void*)sync_multi_round_kernel, grid, dim3(BLOCK), args, SMEM_BYTES,
       static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) {
     cudaGetLastError();

@@ -10,21 +10,38 @@
 // state, as ops/sync_round_kernel.plain_round does in plain PyTorch
 // (ops/sync_engine._round_step_single's tensor code):
 //
-//   in:  cache_addr/val/state [n, C], read in place (one 16-byte load a
-//        plane and node at C = 4), dm [E, 7], idx and instr_count [n],
-//        round and seed (0-d), the 11 metric counters [11];
+//   in:  cache_addr/val/state [R, n, C], read in place (one 16-byte load
+//        a plane and node at C = 4), dm [R, E, 7], idx and instr_count
+//        [R, n], round and seed [R], the 11 metric counters [R, 11];
 //   out: the cache planes, dm, idx, round + 1 and the counters.
 //
+// R is the replica axis of a seed ensemble (ops/sync_engine.
+// ensemble_round_step): R independent machines in one launch, between
+// the same three grid barriers; one machine is R = 1, the same entry
+// point and the same code. The design gives blocks to replicas (Team in
+// csrc/sync_round.cuh): the grid is 2-D, a row of blocks a replica.
+// While the grid holds every replica's nodes at one node a thread, each
+// row serves one replica's nodes; past that the resident blocks split
+// evenly over the replicas and a thread loops over nodes (and, past one
+// block a replica, a row over replicas).
+// Every phase runs on one replica's view of the operands (replica()), so
+// claims, commits and fan-out stay inside that replica's dm, its claim
+// keys come from its own round and seed, and its counters are summed by
+// blocks that serve it alone. Replicas share no row, so the argument
+// below holds for each replica of a launch.
+//
 // What it shares with the txn_width >= 2 round (csrc/sync_multi_round.cu)
-// outside the node-local burst is in csrc/sync_round.cuh: the claim key,
-// the dm copy, the fan-out of one line, the counters and the grid.
+// outside the node-local burst is in csrc/sync_round.cuh: the operands
+// and their replica views, the claim key, the dm copy, the fan-out of one
+// line, the counters and the grid.
 //
 // Phases (each "|" is a grid barrier, cooperative_groups::this_grid()
 // .sync(); the launch is cooperative, so every block is resident):
 //
-//   P0  the grid copies dm to dm_out in 16-byte words (consecutive
-//       threads on consecutive words, 8 loads in flight a thread);
-//       block 0 writes round + 1 and the counters with rounds + 1 |
+//   P0  the grid copies every replica's dm to dm_out in 16-byte words
+//       (consecutive threads on consecutive words, 8 loads in flight a
+//       thread), and writes each replica's round + 1 and its counters
+//       with rounds + 1 |
 //   P1  per node: the burst (csrc/sync_burst.cuh) on the round-start
 //       cache, with the post-burst values and states written to the
 //       output planes; the stopped instruction classified against the
@@ -43,9 +60,11 @@
 //       tag's entry and is killed, downgraded or promoted; a promoted
 //       line writes its node as DM_OWNER. Then, in the same thread, the
 //       winner's fill of its own line and the cache rows out. The
-//       metric deltas, summed in registers over the thread's nodes, are
-//       reduced per block and added with one integer atomicAdd per
-//       counter and block (order-free, so the result is deterministic).
+//       metric deltas, read from what P1 and P2 left in scratch and
+//       summed in registers over the thread's nodes of a replica, are
+//       reduced per block and added to that replica's counters with one
+//       integer atomicAdd per counter and block (order-free, so the
+//       result is deterministic).
 //
 // The plain round's P2a (gathers, win, outcomes) and P2b (the commit
 // scatter) run here without a barrier between them. Every value read
@@ -71,10 +90,10 @@
 // row). Three grid barriers.
 //
 // Per-node values that cross a barrier go through scratch in device
-// memory ([R_ROWS, n], written and read by the same thread, coalesced),
-// so a thread can run several nodes: the grid is sized by an occupancy
-// query (made once a device and cached), one node a thread while the
-// nodes fit, larger machines loop.
+// memory ([R_ROWS, n] a replica, written and read by the same thread,
+// coalesced), so a thread can run several nodes: the grid is sized by an
+// occupancy query (made once a device and cached), one node a thread
+// while the nodes fit, larger machines and ensembles loop.
 //
 // What bounds it on the H100: bytes. At sync@4096 the launch must move
 // dm in and out (E = 65,536 rows of 28 B each way, 3.67 MB) and the
@@ -83,7 +102,8 @@
 // of classification, key, outcomes and fan-out, a tenth of the bytes'
 // time. The dm copy is the only part that needs bandwidth; the rest is
 // the burst's dependent chain, a few gathers and three grid barriers.
-// Its times beside its bound are in PERF.md, section 6.
+// An ensemble of R moves R times the bytes in one launch. Its times
+// beside its bound are in PERF.md, section 6.
 //
 // Semantics kept from JAX's int32: shifts of signed values whose result
 // may wrap (round << 2, the key) go through uint32_t; the arithmetic >>
@@ -117,36 +137,18 @@ constexpr int R_LVAL = 3;    // the line's value after the burst
 constexpr int R_BITS = 4;    // d | flags (B_*) | line state << 24
 constexpr int R_FILL = 5;    // fill state of a winner, else -1
 constexpr int R_FILLV = 6;   // fill value
-constexpr int R_ROWS = 7;
+constexpr int R_HITS = 7;    // the burst's read hits | write hits << 16
+constexpr int R_ROWS = 8;
 constexpr int B_TXN = 1 << 16, B_VICT = 1 << 17, B_RD = 1 << 18,
               B_WR = 1 << 19, B_UP = 1 << 20;
 static_assert(H < (1 << 16), "drain_depth fits 16 bits");
 
-struct Args {
-  const int* ca;       // [n, C] round-start cache
-  const int* cv;
-  const int* cs;
-  const int* dm;       // [E, 7]
-  const int* idx;      // [n]
-  const int* cnt;      // [n] trace length
-  const int* round;    // 0-d
-  const int* seed;     // 0-d
-  const int* metrics;  // [11]
-  int* ca_o;           // [n, C]
-  int* cv_o;
-  int* cs_o;
-  int* dm_o;           // [E, 7]
-  int* idx_o;          // [n]
-  int* round_o;        // 0-d
-  int* metrics_o;      // [11]
-  int* scratch;        // [R_ROWS, n]
-  int n;
-};
+// The phases take one replica's view (replica()): n nodes, round and
+// seed 0-d, scratch [R_ROWS, n].
 
 // P1 for one node: burst, classification, claims.
 __device__ __forceinline__ void phase_claim(const Args& a, const Keys& k,
-                                            int node, int E,
-                                            int (&acc)[N_DELTAS]) {
+                                            int node, int E) {
   const int n = a.n;
   int ca[C], cs0[C], cv[C], cs[C];
   load_row<true>(a.ca, node, ca);
@@ -158,8 +160,6 @@ __device__ __forceinline__ void phase_claim(const Args& a, const Keys& k,
                         ca, cs0, cv, cs);
   store_row(a.cv_o, node, cv);
   store_row(a.cs_o, node, cs);
-  acc[M_RH] += b.rh;
-  acc[M_WH] += b.wh;
 
   // the stopped instruction against its line after the burst
   const int op = b.oa >> 28, addr = b.oa & 0x0FFFFFFF;
@@ -194,12 +194,12 @@ __device__ __forceinline__ void phase_claim(const Args& a, const Keys& k,
   sc[R_BITS * n + node] = b.d | (txn ? B_TXN : 0) | (victim ? B_VICT : 0) |
                           (rd_miss ? B_RD : 0) | (wr_miss ? B_WR : 0) |
                           (upg ? B_UP : 0) | (l_state << 24);
+  sc[R_HITS * n + node] = b.rh | (b.wh << 16);
 }
 
 // P2 for one node: verdict, outcomes, commit.
 __device__ __forceinline__ void phase_commit(const Args& a, const Keys& k,
-                                             int round, int node, int E,
-                                             int (&acc)[N_DELTAS]) {
+                                             int round, int node, int E) {
   const int n = a.n;
   const int* sc = a.scratch;
   const int bits = sc[R_BITS * n + node];
@@ -249,27 +249,30 @@ __device__ __forceinline__ void phase_commit(const Args& a, const Keys& k,
           rtag | (!ev_mod && n2c == 1 ? ACT_PROMOTE : ACT_NONE), node, key};
 #pragma unroll
       for (int j = 0; j < DM_COLS; ++j) r2[j] = row2[j];
-      acc[M_EV] += 1;
     }
     fill = rd_w ? (d_u ? EXC : SHD) : MOD;
     fill_val = rd_w ? (d_em ? val_o : d1m) : sc[R_VAL * n + node];
-    acc[M_RD] += rd_w ? 1 : 0;
-    acc[M_WR] += wr_w ? 1 : 0;
-    acc[M_UP] += up_w ? 1 : 0;
   }
-  acc[M_CONF] += (txn && !win) ? 1 : 0;
   const int n_ret = d + (win ? 1 : 0);
-  acc[M_RET] += n_ret;
   a.idx_o[node] = (int)((uint32_t)__ldg(a.idx + node) + (uint32_t)n_ret);
   a.scratch[R_FILL * n + node] = fill;
   a.scratch[R_FILLV * n + node] = fill_val;
 }
 
-// P3 for one node: fan-out over its lines, its fill, its cache rows out.
+// P3 for one node: fan-out over its lines, its fill, its cache rows out,
+// and the round's metric deltas from what P1 and P2 left in scratch (a
+// winner is a node with a fill).
 __device__ __forceinline__ void phase_fanout(const Args& a, int round,
                                              int node, int E,
                                              int (&acc)[N_DELTAS]) {
   const int n = a.n;
+  // the scratch words first: the fan-out's DM_OWNER stores may alias
+  // them as far as the compiler knows, so loads after it would wait
+  const int fill = a.scratch[R_FILL * n + node];
+  const int bits = a.scratch[R_BITS * n + node];
+  const int hits = a.scratch[R_HITS * n + node];
+  const int addr = a.scratch[R_OA * n + node] & 0x0FFFFFFF;
+  const int fill_val = a.scratch[R_FILLV * n + node];
   int ca[C], cv[C], cs[C];
   load_row<true>(a.ca, node, ca);
   load_row<false>(a.cv_o, node, cv);
@@ -277,11 +280,17 @@ __device__ __forceinline__ void phase_fanout(const Args& a, int round,
 #pragma unroll
   for (int c = 0; c < C; ++c)
     fan_out_line(a.dm_o, E, round, node, ca[c], cs[c], acc);
-  const int fill = a.scratch[R_FILL * n + node];
-  if (fill >= 0) {
-    const int addr = a.scratch[R_OA * n + node] & 0x0FFFFFFF;
+  const bool win = fill >= 0;
+  acc[M_RH] += hits & 0xFFFF;
+  acc[M_WH] += hits >> 16;
+  acc[M_RET] += (bits & 0xFFFF) + (win ? 1 : 0);
+  acc[M_CONF] += ((bits & B_TXN) && !win) ? 1 : 0;
+  acc[M_RD] += (win && (bits & B_RD)) ? 1 : 0;
+  acc[M_WR] += (win && (bits & B_WR)) ? 1 : 0;
+  acc[M_UP] += (win && (bits & B_UP)) ? 1 : 0;
+  acc[M_EV] += (win && (bits & B_VICT)) ? 1 : 0;
+  if (win) {
     const int ci = cache_index(addr);
-    const int fill_val = a.scratch[R_FILLV * n + node];
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       ca[c] = ci == c ? addr : ca[c];
@@ -297,29 +306,51 @@ __device__ __forceinline__ void phase_fanout(const Args& a, int round,
 __global__ void __launch_bounds__(BLOCK) sync_round_kernel(Args a) {
   cg::grid_group grid = cg::this_grid();
   const int n = a.n, E = n << SW_BLOCK_BITS;
-  const int first = blockIdx.x * BLOCK + threadIdx.x;
-  const int stride = gridDim.x * BLOCK;
-  const int round = __ldg(a.round);
-  const Keys k = make_keys(round, __ldg(a.seed));
-  int acc[N_DELTAS];
-#pragma unroll
-  for (int j = 0; j < N_DELTAS; ++j) acc[j] = 0;
+  // the block's first replica's round and keys, read before the dm
+  // copy; Team comes from the launch's indices, taken afresh in each
+  // phase rather than kept across the barriers
+  const RoundKeys first = round_keys(a.round, a.seed, team<BLOCK>().group);
+  Team t;
 
-  copy_dm(a.dm, a.dm_o, (size_t)E * DM_COLS, first, stride);
-  start_counters(a.metrics, a.metrics_o, round, a.round_o, first);
+  copy_dm(a.dm, a.dm_o, (size_t)a.reps * E * DM_COLS, grid_first<BLOCK>(),
+          grid_threads<BLOCK>());
+  start_counters(a, grid_first<BLOCK>(), grid_threads<BLOCK>());
   grid.sync();
+  t = team<BLOCK>();
 #pragma unroll 1
-  for (int node = first; node < n; node += stride)
-    phase_claim(a, k, node, E, acc);
+  for (int r = t.group; r < a.reps; r += t.groups) {
+    const Args v = replica<C, R_ROWS>(a, r, E);
+    const RoundKeys rk =
+        r == t.group ? first : round_keys(a.round, a.seed, r);
+#pragma unroll 1
+    for (int node = t.node0; node < n; node += t.nstride)
+      phase_claim(v, rk.k, node, E);
+  }
   grid.sync();
+  t = team<BLOCK>();
 #pragma unroll 1
-  for (int node = first; node < n; node += stride)
-    phase_commit(a, k, round, node, E, acc);
+  for (int r = t.group; r < a.reps; r += t.groups) {
+    const Args v = replica<C, R_ROWS>(a, r, E);
+    const RoundKeys rk =
+        r == t.group ? first : round_keys(a.round, a.seed, r);
+#pragma unroll 1
+    for (int node = t.node0; node < n; node += t.nstride)
+      phase_commit(v, rk.k, rk.round, node, E);
+  }
   grid.sync();
+  t = team<BLOCK>();
 #pragma unroll 1
-  for (int node = first; node < n; node += stride)
-    phase_fanout(a, round, node, E, acc);
-  add_counters<BLOCK>(acc, a.metrics_o);
+  for (int r = t.group; r < a.reps; r += t.groups) {
+    const Args v = replica<C, R_ROWS>(a, r, E);
+    const int round = r == t.group ? first.round : __ldg(v.round);
+    int acc[N_DELTAS];
+#pragma unroll
+    for (int j = 0; j < N_DELTAS; ++j) acc[j] = 0;
+#pragma unroll 1
+    for (int node = t.node0; node < n; node += t.nstride)
+      phase_fanout(v, round, node, E, acc);
+    flush_counters<BLOCK>(acc, v.metrics_o);
+  }
 }
 
 Grid<BLOCK, MAX_BLOCKS_PER_SM, SMEM_BYTES> the_grid;
@@ -329,8 +360,11 @@ Grid<BLOCK, MAX_BLOCKS_PER_SM, SMEM_BYTES> the_grid;
 // Plain C entry points (bound with ctypes).
 extern "C" {
 
-// int32 elements of the scratch buffer the kernel needs for n nodes
-long long sync_round_scratch_ints(int n) { return (long long)R_ROWS * n; }
+// int32 elements of the scratch buffer the kernel needs for reps
+// replicas of n nodes
+long long sync_round_scratch_ints(int reps, int n) {
+  return (long long)R_ROWS * n * reps;
+}
 
 // dynamic shared memory a block that the occupancy query and the
 // launch pass
@@ -344,29 +378,34 @@ int sync_round_static_smem_bytes() {
   return e == cudaSuccess ? (int)attr.sharedSizeBytes : -(int)e;
 }
 
-// the grid the launch for n nodes uses (>= 1), or -(CUDA error)
-int sync_round_grid(int n) {
-  int grid = 0;
-  const int err = the_grid.grid_for(sync_round_kernel, n > 0 ? n : 1, &grid);
-  return err ? -err : grid;
+// the grid the launch for reps replicas of n nodes uses (>= 1), or
+// -(CUDA error)
+int sync_round_grid(int reps, int n) {
+  dim3 grid;
+  const int err = the_grid.grid_for(sync_round_kernel, reps > 0 ? reps : 1,
+                                    n > 0 ? n : 1, &grid);
+  return err ? -err : (int)(grid.x * grid.y);
 }
 
-// One round, launched cooperatively on `stream` without synchronising;
-// returns the launch's CUDA error (0 on success). n >= 1.
+// One round of reps machines of n nodes each, launched cooperatively on
+// `stream` without synchronising; returns the launch's CUDA error (0 on
+// success). reps >= 1, n >= 1.
 int sync_round(const int* ca, const int* cv, const int* cs, const int* dm,
                const int* idx, const int* cnt, const int* round,
                const int* seed, const int* metrics, int* ca_o, int* cv_o,
                int* cs_o, int* dm_o, int* idx_o, int* round_o,
-               int* metrics_o, int* scratch, int n, void* stream) {
-  if (n <= 0) return (int)cudaErrorInvalidValue;
-  int grid = 0;
-  const int err = the_grid.grid_for(sync_round_kernel, n, &grid);
+               int* metrics_o, int* scratch, int reps, int n,
+               void* stream) {
+  if (n <= 0 || reps <= 0) return (int)cudaErrorInvalidValue;
+  dim3 grid;
+  const int err = the_grid.grid_for(sync_round_kernel, reps, n, &grid);
   if (err) return err;
-  Args a = {ca,   cv,   cs,   dm,    idx,     cnt,       round,   seed, metrics,
-            ca_o, cv_o, cs_o, dm_o, idx_o, round_o, metrics_o, scratch, n};
+  Args a = {ca,    cv,      cs,        dm,      idx,  cnt,  round,
+            seed,  metrics, ca_o,      cv_o,    cs_o, dm_o, idx_o,
+            round_o, metrics_o, scratch, n,     reps};
   void* args[] = {&a};
   const cudaError_t e = cudaLaunchCooperativeKernel(
-      (const void*)sync_round_kernel, dim3(grid), dim3(BLOCK), args, SMEM_BYTES,
+      (const void*)sync_round_kernel, grid, dim3(BLOCK), args, SMEM_BYTES,
       static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) {
     cudaGetLastError();

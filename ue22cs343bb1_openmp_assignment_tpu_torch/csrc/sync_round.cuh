@@ -1,22 +1,40 @@
 // Device code shared by the two cooperative round kernels of the sync
 // engine: csrc/sync_round.cu (txn_width 1) and csrc/sync_multi_round.cu
-// (txn_width >= 2). Both take the state as the engine holds it (cache
-// planes [n, C], dm [E, 7], the [11] counters) to the next round's
-// state in one launch; what they share is everything outside their
-// node-local folds:
+// (txn_width >= 2). Both take the state of R machines as the engine
+// holds it (cache planes [R, n, C], dm [R, E, 7], idx and instr_count
+// [R, n], round and seed [R], the counters [R, 11]; one machine is
+// R = 1) to the next round's state in one launch; what they share is
+// everything outside their node-local folds:
 //
+// - the operands (Args) and one replica's view of them (replica): each
+//   pointer moved to that replica's part, so that a phase reads and
+//   writes one machine's tensors exactly as it did before the replica
+//   axis;
+// - how the grid's blocks share the replicas (Team): the grid is 2-D,
+//   gridDim.x blocks serve one replica's nodes and gridDim.y replicas
+//   run at once; block row y serves replicas y, y + gridDim.y, ...,
+//   which is one replica whenever the grid holds them all (the sizes the
+//   card runs);
 // - the claim key of ops/sync_engine._round_key_rs in uint32 arithmetic
-//   (Keys, make_keys);
+//   (Keys, make_keys), on the replica's own round and seed, read before
+//   the first barrier for the block's first replica (RoundKeys);
 // - JAX's clipped gathers (clip) and a node's row of an [n, C] plane in
 //   16-byte words (load_row, store_row);
-// - P0, the copy of dm to dm_out over the whole grid (copy_dm), and the
-//   counters' start (start_counters: rounds + 1, round + 1);
+// - P0, the copy of every replica's dm to dm_out over the whole grid
+//   (copy_dm), and the counters' start (start_counters: rounds + 1,
+//   round + 1, for each replica);
 // - the fan-out of one valid line (fan_out_line: kill, downgrade or
 //   promote, and DM_OWNER on a promotion);
-// - the block's reduction of the metric deltas (add_counters: warp
-//   shuffles, then one integer atomicAdd a counter and block);
+// - the block's reduction of a replica's metric deltas in the last phase
+//   (flush_counters: warp shuffles, then one integer atomicAdd a counter
+//   and block);
 // - the grid: blocks that can be resident at once, queried once a device
-//   and cached (grid_for).
+//   and cached, and its split over the replicas (grid_for).
+//
+// Replicas share no row of any tensor: a replica's view reaches only its
+// own part, entries are clipped into its own [0, E), and so the race
+// arguments that each kernel's header makes for one machine hold for
+// each replica of the launch.
 //
 // The build defines SR_PB (the claim key's priority bits) and SR_CMR
 // (sync_engine.claim_max_rounds), and the hash's constants
@@ -82,6 +100,20 @@ __device__ __forceinline__ Keys make_keys(int round, int seed) {
   return k;
 }
 
+// A replica's round and claim keys (its round and seed words of [R]).
+// A kernel reads its block's first replica's at the start, before the
+// dm copy, so that no phase waits on those loads after a barrier.
+struct RoundKeys {
+  int round;
+  Keys k;
+};
+
+__device__ __forceinline__ RoundKeys round_keys(const int* round,
+                                                const int* seed, int r) {
+  const int rd = __ldg(round + r);
+  return {rd, make_keys(rd, __ldg(seed + r))};
+}
+
 __device__ __forceinline__ int clip(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
@@ -130,6 +162,86 @@ __device__ __forceinline__ void store_row(int* plane, int node,
   }
 }
 
+// The operands of one launch, for `reps` machines of `n` nodes each, in
+// replica-major order (replica r's part of a [R, ...] tensor starts at
+// r times the size of one machine's).
+struct Args {
+  const int* ca;       // [R, n, C] round-start cache
+  const int* cv;
+  const int* cs;
+  const int* dm;       // [R, E, 7]
+  const int* idx;      // [R, n]
+  const int* cnt;      // [R, n] trace length
+  const int* round;    // [R]
+  const int* seed;     // [R]
+  const int* metrics;  // [R, 11]
+  int* ca_o;           // [R, n, C]
+  int* cv_o;
+  int* cs_o;
+  int* dm_o;           // [R, E, 7]
+  int* idx_o;          // [R, n]
+  int* round_o;        // [R]
+  int* metrics_o;      // [R, 11]
+  int* scratch;        // [R, ROWS, n]
+  int n;               // nodes a replica
+  int reps;            // replicas
+};
+
+// Replica r's view of `a`: every pointer at r's part (C cache lines a
+// node, E directory rows and ROWS scratch rows a replica).
+template <int C, int ROWS>
+__device__ __forceinline__ Args replica(const Args& a, int r, int E) {
+  const size_t cell = (size_t)r * a.n;
+  const size_t rows = (size_t)r * E * DM_COLS;
+  Args v = a;
+  v.ca = a.ca + cell * C;
+  v.cv = a.cv + cell * C;
+  v.cs = a.cs + cell * C;
+  v.dm = a.dm + rows;
+  v.idx = a.idx + cell;
+  v.cnt = a.cnt + cell;
+  v.round = a.round + r;
+  v.seed = a.seed + r;
+  v.metrics = a.metrics + (size_t)r * N_METRICS;
+  v.ca_o = a.ca_o + cell * C;
+  v.cv_o = a.cv_o + cell * C;
+  v.cs_o = a.cs_o + cell * C;
+  v.dm_o = a.dm_o + rows;
+  v.idx_o = a.idx_o + cell;
+  v.round_o = a.round_o + r;
+  v.metrics_o = a.metrics_o + (size_t)r * N_METRICS;
+  v.scratch = a.scratch + cell * ROWS;
+  return v;
+}
+
+// This thread's share of the replicas: its block row serves replicas
+// group, group + groups, ... (one replica when groups == reps), and in
+// each the nodes node0, node0 + nstride, ... From the launch's indices
+// alone, so a phase takes it afresh at no cost.
+struct Team {
+  int group, groups, node0, nstride;
+};
+
+template <int BLOCK>
+__device__ __forceinline__ Team team() {
+  return {(int)blockIdx.y, (int)gridDim.y,
+          (int)blockIdx.x * BLOCK + (int)threadIdx.x,
+          (int)gridDim.x * BLOCK};
+}
+
+// The thread's index in the whole grid and the grid's threads, for the
+// loops over every replica's words (copy_dm, start_counters).
+template <int BLOCK>
+__device__ __forceinline__ int grid_first() {
+  return ((int)blockIdx.y * (int)gridDim.x + (int)blockIdx.x) * BLOCK +
+         (int)threadIdx.x;
+}
+
+template <int BLOCK>
+__device__ __forceinline__ int grid_threads() {
+  return (int)(gridDim.x * gridDim.y) * BLOCK;
+}
+
 // P0: dm -> dm_out (`words` int32) over the whole grid, 16-byte words
 // (the wrappers check the alignment), a batch of loads in flight before
 // any store. `first` is the thread's index in the grid, `stride` the
@@ -160,16 +272,17 @@ __device__ __forceinline__ void copy_dm(const int* dm, int* dm_o,
     dm_o[j] = __ldg(dm + j);
 }
 
-// P0's other half: block 0 writes the counters with rounds + 1, and the
-// grid's first thread round + 1.
-__device__ __forceinline__ void start_counters(const int* metrics,
-                                               int* metrics_o, int round,
-                                               int* round_o, int first) {
-  if (blockIdx.x == 0 && threadIdx.x < N_METRICS)
-    metrics_o[threadIdx.x] =
-        (int)((uint32_t)__ldg(metrics + threadIdx.x) +
-              (threadIdx.x == 0 ? 1u : 0u));
-  if (first == 0) *round_o = (int)((uint32_t)round + 1u);
+// P0's other half, over the grid: every replica's counters with
+// rounds + 1, and its round + 1.
+__device__ __forceinline__ void start_counters(const Args& a, int first,
+                                               int stride) {
+#pragma unroll 1
+  for (int i = first; i < a.reps * N_METRICS; i += stride)
+    a.metrics_o[i] = (int)((uint32_t)__ldg(a.metrics + i) +
+                           (i % N_METRICS == 0 ? 1u : 0u));
+#pragma unroll 1
+  for (int r = first; r < a.reps; r += stride)
+    a.round_o[r] = (int)((uint32_t)__ldg(a.round + r) + 1u);
 }
 
 // The fan-out for one line of `node` (tag `tag`, state `state`): a valid
@@ -196,16 +309,19 @@ __device__ __forceinline__ void fan_out_line(int* dm_o, int E, int round,
   }
 }
 
-// The block's metric deltas onto metrics_o[1..10]: warp sums, then one
-// atomicAdd a counter (integer and order-free, so the result is
-// deterministic). Every thread of the block calls it.
+// The block's metric deltas of one replica onto its metrics_o[1..10]:
+// warp sums, then one atomicAdd a counter (integer and order-free, so
+// the result is deterministic). Every thread of the block calls it, in
+// the last phase, once for each replica the block serves; the leading
+// barrier lets it run again for the block's next replica.
 template <int BLOCK>
-__device__ __forceinline__ void add_counters(const int (&acc)[N_DELTAS],
-                                             int* metrics_o) {
+__device__ __forceinline__ void flush_counters(const int (&acc)[N_DELTAS],
+                                               int* metrics_o) {
   constexpr int WARPS = BLOCK / 32;
   static_assert(BLOCK % 32 == 0, "whole warps");
   __shared__ int part[WARPS][N_DELTAS];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __syncthreads();
 #pragma unroll
   for (int j = 0; j < N_DELTAS; ++j) {
     int v = acc[j];
@@ -261,15 +377,23 @@ struct Grid {
     return 0;
   }
 
-  // Blocks of the launch for n nodes: one node a thread while the nodes
-  // fit the blocks that can be resident at once, else all of those.
+  // The grid of the launch for reps replicas of n nodes: grid->x blocks
+  // a replica, grid->y replicas at once. One node a thread while every
+  // replica's nodes fit the blocks that can be resident at once; else
+  // the resident blocks split evenly over the replicas (a thread loops
+  // over its nodes); past one block a replica, each block row loops over
+  // replicas too. At reps 1 this is the grid of one machine.
   template <class F>
-  int grid_for(F* kernel, int n, int* grid) {
+  int grid_for(F* kernel, int reps, int n, dim3* grid) {
     int resident = 0;
     const int err = resident_blocks(kernel, &resident);
     if (err) return err;
-    const int want = (n + BLOCK - 1) / BLOCK;
-    *grid = want < resident ? want : resident;
+    const long long want = (n + BLOCK - 1) / BLOCK;
+    long long per = want;
+    if ((long long)reps * want > resident)
+      per = resident / reps < 1 ? 1 : resident / reps;
+    const long long fit = resident / per;
+    *grid = dim3((unsigned)per, (unsigned)(fit < reps ? fit : reps));
     return 0;
   }
 };

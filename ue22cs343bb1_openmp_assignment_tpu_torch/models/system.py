@@ -7,7 +7,9 @@ quiescence, dump the golden state) plus synthetic workloads, schedule
 knobs, metrics, invariant checks and the stall watchdog. State lives on
 ``device`` (None means the card; the CPU only when asked for).
 
-Checkpoints (``save``/``load``) and the traced runs are later slices.
+The traced runs hand back the event record as numpy arrays on the host
+(``utils.eventlog`` renders it). Checkpoints (``save``/``load``) are a
+later slice.
 """
 
 from __future__ import annotations
@@ -94,6 +96,36 @@ class CoherenceSystem:
     def run_cycles(self, n: int) -> "CoherenceSystem":
         return dataclasses.replace(
             self, state=step.run_cycles(self.cfg, self.state, n))
+
+    def run_cycles_traced(self, n: int):
+        """run_cycles and the event record: (system, events) with events
+        a dict of [n, N] numpy arrays on the host."""
+        state, ev = step.run_cycles_traced(self.cfg, self.state, n)
+        return (dataclasses.replace(self, state=state),
+                {k: v.cpu().numpy() for k, v in ev.items()})
+
+    def run_traced(self, max_cycles: int = 100_000, chunk: int = 64):
+        """Run to quiescence collecting the event log in ``chunk``-cycle
+        blocks: (system, events) with events a dict of [cycles, N] numpy
+        arrays (``ops.step.run_cycles_traced``), {} if no block ran.
+
+        Event rows are relative to the starting cycle (pass
+        ``base_cycle=int(state.cycle)``, read before the run, to
+        ``utils.eventlog`` for absolute cycles). ``max_cycles`` is an
+        absolute cap on ``state.cycle``, as in ``run``; the last block is
+        trimmed so the cap is exact. The run may pass quiescence by up to
+        chunk - 1 cycles: a quiescent state is a fixpoint, so only the
+        cycle counters advance and those cycles record no events."""
+        state = self.state
+        chunks = []
+        while (not bool(state.quiescent())
+               and int(state.cycle) < max_cycles):
+            n = min(chunk, max_cycles - int(state.cycle))
+            state, ev = step.run_cycles_traced(self.cfg, state, n)
+            chunks.append({k: v.cpu().numpy() for k, v in ev.items()})
+        events = ({k: np.concatenate([c[k] for c in chunks])
+                   for k in chunks[0]} if chunks else {})
+        return dataclasses.replace(self, state=state), events
 
     # -- observability -----------------------------------------------------
     @property

@@ -8,8 +8,9 @@ and ``printProcessorState`` dumps, for every round of
 multi-transaction). State lives on ``device`` (None means the card; the
 CPU only when asked for).
 
-Synthetic stored-trace workloads (``from_workload``), checkpoints and
-seed ensembles are later slices of the port.
+``ensemble`` stacks this machine under several arbitration seeds
+(``ops.sync_engine.make_ensemble``). Synthetic stored-trace workloads
+(``from_workload``) and checkpoints are later slices of the port.
 """
 
 from __future__ import annotations
@@ -77,6 +78,13 @@ class TransactionalSystem:
             self, state=se.continue_with_traces(
                 self.cfg, self.state, traces=traces,
                 instr_arrays=instr_arrays))
+
+    # -- ensembles ---------------------------------------------------------
+    def ensemble(self, seeds: Sequence[int]) -> se.SyncState:
+        """[len(seeds), ...] ensemble of this machine under each seed."""
+        return se.make_ensemble(
+            [self.state.replace(seed=se._i32(s, self.state.device))
+             for s in seeds])
 
     # -- inspection --------------------------------------------------------
     @property

@@ -175,7 +175,7 @@ class TorchIndexOps:
 
 
 def round_step_deep(cfg: SystemConfig, st: SyncState,
-                    fold_impl: str = "kernel") -> SyncState:
+                    fold_impl: str = "kernel", with_events: bool = False):
     """One deep-window round.
 
     ``fold_impl`` selects how the three W-step folds run: ``"kernel"``
@@ -183,7 +183,12 @@ def round_step_deep(cfg: SystemConfig, st: SyncState,
     kernel for CUDA tensors and take the plain fold only for CPU
     tensors; ``"plain"`` runs the plain folds (``deep_fold_kernel.PLAIN``,
     the PyTorch ``_fold_deep``) on any device. The round middle is this
-    module's code either way."""
+    module's code either way.
+
+    ``with_events`` also returns the round's retirement record, read
+    from the replay fold's ``n_ret`` (so on the card the event record
+    comes through the fold kernels): (state, {"retired", "op", "addr",
+    "value"}), each [N, W]."""
     if fold_impl not in ("kernel", "plain"):
         raise ValueError(f"fold_impl must be 'kernel' or 'plain', "
                          f"not {fold_impl!r}")
@@ -202,7 +207,7 @@ def round_step_deep(cfg: SystemConfig, st: SyncState,
 
     core = deep_round_core(cfg, st.dm, st.round, st.seed, pre,
                            fold_flags_fn, fold_replay_fn, TorchIndexOps())
-    return _finish_round_deep(cfg, st, core)
+    return _finish_round_deep(cfg, st, core, win[0], win[1], with_events)
 
 
 def deep_round_core(cfg: SystemConfig, dm0, round_, seed, pre,
@@ -633,12 +638,15 @@ def deep_round_core(cfg: SystemConfig, dm0, round_, seed, pre,
                 delta_rows=delta_rows)
 
 
-def _finish_round_deep(cfg: SystemConfig, st: SyncState, core) -> SyncState:
+def _finish_round_deep(cfg: SystemConfig, st: SyncState, core,
+                       w_oa=None, w_val=None, with_events: bool = False):
     """Fold a deep_round_core result back into the SyncState: metrics
-    from the per-node delta rows, window-cursor/horizon advance."""
+    from the per-node delta rows, window-cursor/horizon advance. With
+    ``with_events``, also the retirement record of the window
+    ``w_oa``/``w_val`` [W, N]: (state, events), each event [N, W]."""
     rp = core["rp"]
     deltas = torch.sum(core["delta_rows"], dim=1, dtype=I32)
-    return st.replace(
+    out = st.replace(
         cache_addr=core["ca_c"].T.contiguous(),
         cache_val=core["cv_c"].T.contiguous(),
         cache_state=core["cs_c"].T.contiguous(),
@@ -646,3 +654,10 @@ def _finish_round_deep(cfg: SystemConfig, st: SyncState, core) -> SyncState:
         horizon=torch.clamp(rp["n_ret"] + cfg.deep_horizon_slack, 2,
                             1 << 20),
         round=st.round + 1, metrics=st.metrics.after_round(deltas))
+    if not with_events:
+        return out
+    W = w_oa.shape[0]
+    offs = torch.arange(W, dtype=I32, device=w_oa.device)[None, :]
+    return out, {"retired": offs < rp["n_ret"][:, None],
+                 "op": w_oa.T >> 28, "addr": w_oa.T & 0x0FFFFFFF,
+                 "value": w_val.T}

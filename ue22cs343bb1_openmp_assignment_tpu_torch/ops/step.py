@@ -21,8 +21,9 @@ agree with the reference; ``run_to_quiescence`` is chunk 1.
 Only the packed commit of the JAX cycle is ported (its ``_PACKED_COMMIT``
 seam serves the JAX index auditor). Each family's row commit is a
 one-hot ``where`` over the row's columns: the same writes as the JAX
-drop-scatter, whose kept lanes are one per node. The telemetry, ledger,
-obs and profile captures are a later slice.
+drop-scatter, whose kept lanes are one per node. ``run_cycles_traced``
+stacks the per-cycle event record. The telemetry, ledger, obs and
+profile captures are a later slice.
 """
 
 from __future__ import annotations
@@ -240,6 +241,28 @@ def run_cycles(cfg: SystemConfig, state: SimState, num_cycles: int,
     for _ in range(num_cycles):
         state = cycle(cfg, state, deliver_fn=deliver_fn)
     return state
+
+
+def run_cycles_traced(cfg: SystemConfig, state: SimState, num_cycles: int,
+                      message_phase=None):
+    """Run ``num_cycles`` cycles collecting the per-cycle event record:
+    (state, events) with events a dict of [num_cycles, N] tensors, the
+    data of the reference's printf tracing (``utils.eventlog`` renders it
+    in the ``instruction_order.txt`` line format). ``message_phase`` is
+    the handler-phase override ``cycle`` takes, so a mutated engine's
+    run can be traced too."""
+    per_cycle = []
+    for _ in range(num_cycles):
+        state, ev = cycle(cfg, state, with_events=True,
+                          message_phase=message_phase)
+        per_cycle.append(ev)
+    if not per_cycle:
+        N = cfg.num_nodes
+        _, ev = cycle(cfg, state, with_events=True,
+                      message_phase=message_phase)
+        return state, {k: v.new_empty((0, N)) for k, v in ev.items()}
+    return state, {k: torch.stack([ev[k] for ev in per_cycle])
+                   for k in per_cycle[0]}
 
 
 def run_chunked_to_quiescence(cfg: SystemConfig, state: SimState,

@@ -38,7 +38,12 @@ quiescence flag (one host sync) only between ``chunk``-round blocks,
 exactly where the JAX runner's ``while_loop`` tests it, so round counts
 and claim-key countdowns agree with the reference round for round.
 
-Seed ensembles and the profiling runner are a later slice of the port.
+Seed ensembles (``make_ensemble``, ``run_ensemble_to_quiescence``)
+stack R machines on a leading axis. On a procedural config that the
+fused round kernels take, an ensemble round is one launch of the
+kernel's replica axis for all R machines; every other config steps each
+replica through ``round_step``. The profiling runner is a later slice of
+the port.
 """
 
 from __future__ import annotations
@@ -82,16 +87,19 @@ STATE_FIELDS = ("cache_addr", "cache_val", "cache_state", "dm",
 
 class SyncMetrics:
     """Run counters (the JAX SyncMetrics fields), held in one [11] int32
-    buffer in METRIC_FIELDS order; each field reads as a 0-d view of it.
-    A round updates all of them with one add, or inside the fused round
-    kernel, not with a launch per field."""
+    buffer in METRIC_FIELDS order ([R, 11] in an ensemble of R machines);
+    each field reads as a view of its column (0-d, or [R]). A round
+    updates all of them with one add, or inside the fused round kernel,
+    not with a launch per field."""
 
     __slots__ = ("_buf",)
 
     def __init__(self, buf: torch.Tensor):
-        if buf.shape != (len(METRIC_FIELDS),) or buf.dtype != torch.int32:
+        if (buf.dim() not in (1, 2) or buf.shape[-1] != len(METRIC_FIELDS)
+                or buf.dtype != torch.int32):
             raise ValueError(f"SyncMetrics takes an int32 "
-                             f"[{len(METRIC_FIELDS)}] buffer, not "
+                             f"[{len(METRIC_FIELDS)}] or "
+                             f"[R, {len(METRIC_FIELDS)}] buffer, not "
                              f"{buf.dtype} {tuple(buf.shape)}")
         self._buf = buf
 
@@ -101,19 +109,21 @@ class SyncMetrics:
                                device=device))
 
     def buffer(self) -> torch.Tensor:
-        """The [11] int32 buffer the fields are views of."""
+        """The [11] (or [R, 11]) int32 buffer the fields are views of."""
         return self._buf
 
     def after_round(self, deltas: torch.Tensor) -> "SyncMetrics":
         """The counters one round later: ``rounds`` + 1 and the other
-        ten fields, in METRIC_FIELDS order, + ``deltas`` [10]."""
+        ten fields, in METRIC_FIELDS order, + ``deltas`` [10] (or
+        [R, 10])."""
         step = torch.nn.functional.pad(deltas, (1, 0), value=1)
         return SyncMetrics(self._buf + step)
 
 
 for _i, _f in enumerate(METRIC_FIELDS):
     setattr(SyncMetrics, _f,
-            property(lambda self, i=_i: self._buf[i], doc=f"``{_f}`` (0-d)"))
+            property(lambda self, i=_i: self._buf[..., i],
+                     doc=f"``{_f}`` (0-d, or [R])"))
 
 
 @dataclasses.dataclass
@@ -123,7 +133,9 @@ class SyncState:
     cache_addr/cache_val/cache_state [N, C]; dm [N << block_bits,
     DM_COLS]; instr_pack [N, T, 2] ([op << 28 | addr, value], one
     placeholder slot for procedural machines); instr_count, idx,
-    horizon [N]; seed and round 0-d. All int32, all on one device."""
+    horizon [N]; seed and round 0-d. All int32, all on one device. An
+    ensemble (``make_ensemble``) has a leading replica axis R on every
+    leaf."""
 
     cache_addr: torch.Tensor
     cache_val: torch.Tensor
@@ -139,6 +151,8 @@ class SyncState:
 
     @property
     def num_nodes(self) -> int:
+        """cache_addr's first dimension: N of one machine, but R of an
+        ensemble (read N from the config there)."""
         return self.cache_addr.shape[0]
 
     @property
@@ -220,6 +234,27 @@ def from_traces(cfg: SystemConfig, traces=None, seed: int = 0,
         cfg, dev, traces=traces, instr_arrays=instr_arrays)
     pack = torch.stack([(op << 28) | addr, val], dim=-1).contiguous()
     return _cold_state(cfg, dev, pack, count, seed)
+
+
+def from_sim_state(cfg: SystemConfig, sim_state, seed: int = 0) -> SyncState:
+    """Adopt a pre-run message-level SimState (``state.init_state``, the
+    same loaders and workloads): its cold caches, memory image and
+    traces, on its device. The engines share initial conditions, not
+    mid-flight state."""
+    N = cfg.num_nodes
+    dev = sim_state.cache_addr.device
+    return SyncState(
+        cache_addr=sim_state.cache_addr, cache_val=sim_state.cache_val,
+        cache_state=sim_state.cache_state,
+        dm=_fresh_dm(cfg, sim_state.memory),
+        instr_pack=torch.stack(
+            [(sim_state.instr_op << 28) | sim_state.instr_addr,
+             sim_state.instr_val], dim=-1).contiguous(),
+        instr_count=sim_state.instr_count,
+        idx=torch.zeros((N,), dtype=I32, device=dev),
+        horizon=torch.full((N,), 1 << 20, dtype=I32, device=dev),
+        seed=_i32(seed, dev), round=_i32(0, dev),
+        metrics=SyncMetrics.zeros(dev))
 
 
 def to_sim_arrays(cfg: SystemConfig, st: SyncState):
@@ -1113,16 +1148,14 @@ def round_step(cfg: SystemConfig, st: SyncState,
 
     ``fold_impl="plain"`` runs the plain version of whichever kernel
     the route would launch, on any device. ``with_events`` also returns
-    the round's retirement record (the sync rounds only)."""
+    the round's retirement record; a deep round then takes the fold path
+    (``round_step_deep``, the fold kernels on the card), never the fused
+    round, as in JAX."""
     if fold_impl not in ("kernel", "plain"):
         raise ValueError(f"fold_impl must be 'kernel' or 'plain', "
                          f"not {fold_impl!r}")
     if cfg.deep_window:
-        if with_events:
-            raise NotImplementedError(
-                "the deep-window round's event record is not ported "
-                "(ROADMAP.md)")
-        if cfg.fused_round:
+        if cfg.fused_round and not with_events:
             from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
                 deep_round_kernel)
             if deep_round_kernel.supported(cfg):
@@ -1130,7 +1163,8 @@ def round_step(cfg: SystemConfig, st: SyncState,
                     cfg, st, fold_impl)
         from ue22cs343bb1_openmp_assignment_tpu_torch.ops.deep_engine \
             import round_step_deep
-        return round_step_deep(cfg, st, fold_impl=fold_impl)
+        return round_step_deep(cfg, st, fold_impl=fold_impl,
+                               with_events=with_events)
     use_kernel = False
     if cfg.pallas_burst and cfg.procedural and not with_events:
         from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
@@ -1191,5 +1225,89 @@ def run_sync_to_quiescence(cfg: SystemConfig, st: SyncState,
     while r < limit and not bool(st.quiescent()):
         for _ in range(chunk):
             st = round_step(cfg, st, fold_impl)
+        r += chunk
+    return st
+
+
+# -- ensembles ---------------------------------------------------------------
+#
+# An ensemble runs R independent machines (other workloads or arbitration
+# seeds) on one leading axis: the schedule search of the racy suites
+# (utils.search) and throughput at small N. Every path of the port is
+# host-bound (PERF.md), so on the fused sync rounds one launch a round for
+# all R machines costs about what one machine's launch costs.
+
+def make_ensemble(states) -> SyncState:
+    """Stack per-replica SyncStates into one ensemble state: every leaf
+    gains a leading replica axis R (cache planes [R, N, C], dm [R, E, 7],
+    seed and round [R], the counters [R, 11]), contiguous."""
+    return SyncState(
+        **{f: torch.stack([getattr(s, f) for s in states])
+           for f in STATE_FIELDS},
+        metrics=SyncMetrics(torch.stack([s.metrics.buffer()
+                                         for s in states])))
+
+
+def ensemble_replica(st: SyncState, r: int) -> SyncState:
+    """Replica r of an ensemble state, as a machine of its own (a copy)."""
+    return SyncState(**{f: getattr(st, f)[r].clone() for f in STATE_FIELDS},
+                     metrics=SyncMetrics(st.metrics.buffer()[r].clone()))
+
+
+def _ensemble_kernel(cfg: SystemConfig):
+    """The fused round kernel module whose replica axis runs an ensemble
+    round of ``cfg`` in one launch, or None: the route ``round_step``
+    takes for one machine (procedural, ``cfg.pallas_burst``, no
+    deep_window), where that kernel's ``supported(cfg)`` holds."""
+    if cfg.deep_window or not (cfg.pallas_burst and cfg.procedural):
+        return None
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
+        sync_burst_kernel, sync_multi_round_kernel, sync_round_kernel)
+    if not sync_burst_kernel.supported(cfg):
+        return None
+    mod = sync_round_kernel if cfg.txn_width == 1 else (
+        sync_multi_round_kernel)
+    return mod if mod.supported(cfg) else None
+
+
+def ensemble_round_step(cfg: SystemConfig, st: SyncState,
+                        fold_impl: str = "kernel") -> SyncState:
+    """One round of every replica of an ensemble, dispatched as
+    ``round_step`` dispatches one machine's round.
+
+    Where ``round_step`` would take a fused sync round kernel
+    (``sync_round_kernel`` at txn_width 1, ``sync_multi_round_kernel``
+    above it), the whole ensemble goes through that wrapper's replica
+    axis: one launch for all R replicas on the card (``fold_impl=
+    "plain"``: the plain version, a loop over replicas). Every other
+    config (stored traces, deep configs fused or fold, the burst and
+    window kernel routes) steps each replica through ``round_step`` and
+    restacks the results, so on the card a deep ensemble launches its
+    kernels R times a round."""
+    if fold_impl not in ("kernel", "plain"):
+        raise ValueError(f"fold_impl must be 'kernel' or 'plain', "
+                         f"not {fold_impl!r}")
+    mod = _ensemble_kernel(cfg)
+    if mod is not None:
+        return mod.round_step_fused(cfg, st, fold_impl)
+    R = st.round.shape[0]
+    return make_ensemble([round_step(cfg, ensemble_replica(st, r),
+                                     fold_impl) for r in range(R)])
+
+
+def run_ensemble_to_quiescence(cfg: SystemConfig, st: SyncState,
+                               chunk: int = 32, max_rounds: int = 100_000,
+                               fold_impl: str = "kernel") -> SyncState:
+    """Run an ensemble until every replica's traces retire. Every
+    replica steps every round, quiescent ones included (a quiescent
+    replica is a fixpoint, but its round and ``rounds`` counter
+    advance), and "all quiescent" is tested only between ``chunk``-round
+    blocks, as the JAX package's vmapped runner does."""
+    _assert_round_budget(cfg, st.round[0], max_rounds)
+    r = int(st.round[0])
+    limit = r + max_rounds
+    while r < limit and not bool(st.quiescent()):
+        for _ in range(chunk):
+            st = ensemble_round_step(cfg, st, fold_impl)
         r += chunk
     return st

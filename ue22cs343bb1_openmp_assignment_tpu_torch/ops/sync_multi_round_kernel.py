@@ -19,9 +19,14 @@ on the same tensors. For a CUDA tensor ``fused_round`` launches the
 kernel on the current stream or raises (a refused cooperative launch
 included); it never falls back, to the window kernels or to the plain
 version. For a CPU tensor it runs ``plain_round``. It counts its
-launches in ``fused_round.launches``. The kernel's scratch is allocated
-once for each (device, size) and reused by every later launch of that
-size.
+launches in ``fused_round.launches``: one a round, whatever R. The
+kernel's scratch is allocated once for each (device, size) and reused by
+every later launch of that size.
+
+As ``ops/sync_round_kernel``, every function takes one machine or an
+ensemble of R machines with a leading replica axis, which the kernel's
+replica axis runs in one launch (one machine is R = 1); the plain
+version runs once a replica.
 """
 
 from __future__ import annotations
@@ -37,8 +42,7 @@ from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
     sync_round_kernel as srk)
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops.sync_engine import (
-    DM_COLS, METRIC_FIELDS, SyncMetrics, SyncState, _round_step_multi,
-    claim_max_rounds)
+    SyncMetrics, SyncState, _round_step_multi, claim_max_rounds)
 
 _KERNEL = "sync multi round kernel"
 I32 = torch.int32
@@ -72,11 +76,11 @@ def defines(cfg: SystemConfig) -> tuple:
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.sync_multi_round.argtypes = [p] * 17 + [i, p]
+    lib.sync_multi_round.argtypes = [p] * 17 + [i, i, p]
     lib.sync_multi_round.restype = i
-    lib.sync_multi_round_scratch_ints.argtypes = [i]
+    lib.sync_multi_round_scratch_ints.argtypes = [i, i]
     lib.sync_multi_round_scratch_ints.restype = ctypes.c_longlong
-    lib.sync_multi_round_grid.argtypes = [i]
+    lib.sync_multi_round_grid.argtypes = [i, i]
     lib.sync_multi_round_grid.restype = i
     for fn in (lib.sync_multi_round_smem_bytes,
                lib.sync_multi_round_static_smem_bytes):
@@ -90,22 +94,23 @@ LIBRARY = kernel_build.Library(
     {r"sync_multi_round_kernel": "multi_round"})
 
 
-def io_contract_bytes(cfg: SystemConfig) -> tuple:
-    """(input_bytes, output_bytes) of one launch: each input read once,
-    each output written once. The operands are those of the txn_width 1
-    round kernel (``sync_round_kernel.io_contract_bytes``)."""
-    return srk.io_contract_bytes(cfg)
+def io_contract_bytes(cfg: SystemConfig, reps: int = 1) -> tuple:
+    """(input_bytes, output_bytes) of one launch for ``reps`` machines:
+    each input read once, each output written once. The operands are
+    those of the txn_width 1 round kernel
+    (``sync_round_kernel.io_contract_bytes``)."""
+    return srk.io_contract_bytes(cfg, reps)
 
 
-#: {(device, int32 elements): scratch}: the kernel's per-node scratch,
-#: made at the first launch that needs that size on that device and
-#: reused (every launch writes what it reads of it). The size depends on
-#: N and on the config's K, W and C, so configs of one N may differ.
+#: {(device, int32 elements): scratch}: the kernel's scratch, made at
+#: the first launch that needs that size on that device and reused
+#: (every launch writes what it reads of it). The size depends on R, N
+#: and the config's K, W and C, so configs of one N may differ.
 _SCRATCH = {}
 
 
-def _scratch(lib, dev: torch.device, n: int) -> torch.Tensor:
-    key = (dev, lib.sync_multi_round_scratch_ints(n))
+def _scratch(lib, dev: torch.device, reps: int, n: int) -> torch.Tensor:
+    key = (dev, lib.sync_multi_round_scratch_ints(reps, n))
     if key not in _SCRATCH:
         _SCRATCH[key] = torch.empty((key[1],), dtype=I32, device=dev)
     return _SCRATCH[key]
@@ -113,36 +118,21 @@ def _scratch(lib, dev: torch.device, n: int) -> torch.Tensor:
 
 def launch(cfg: SystemConfig, ca, cv, cs, dm, idx, cnt, round_, seed,
            metrics):
-    """Launch the kernel on the current stream; returns (cache_addr,
-    cache_val, cache_state [N, C], dm [E, 7], idx [N], round (0-d),
-    metrics [11]). Counts the launch on ``fused_round``."""
-    N, C = cfg.num_nodes, cfg.cache_size
-    E = N << cfg.block_bits
+    """Launch the kernel on the current stream for one machine or an
+    ensemble (``sync_round_kernel.check_operands``); returns (cache_addr,
+    cache_val, cache_state, dm, idx, round, metrics) with the operands'
+    leading shape. Counts the launch on ``fused_round``."""
+    reps, lead = srk.check_operands(_KERNEL, cfg, ca, cv, cs, dm, idx, cnt,
+                                    round_, seed, metrics)
     dev = dm.device
-    if dev.type != "cuda":
-        raise ValueError(f"{_KERNEL}: tensors on {dev}, not CUDA")
-    ins = [("cache_addr", ca, (N, C)), ("cache_val", cv, (N, C)),
-           ("cache_state", cs, (N, C)), ("dm", dm, (E, DM_COLS)),
-           ("idx", idx, (N,)), ("instr_count", cnt, (N,)),
-           ("round", round_, ()), ("seed", seed, ()),
-           ("metrics", metrics, (len(METRIC_FIELDS),))]
-    for name, t, shape in ins:
-        kernel_build.check_operand(_KERNEL, name, t, shape, dev)
-    # the kernel reads the cache rows and dm in 16-byte words
-    for name, t, _ in ins[:4]:
-        if t.data_ptr() % 16:
-            raise ValueError(f"{_KERNEL}: {name} must start on a 16-byte "
-                             "boundary")
     lib = LIBRARY.load(cfg)
-    outs = [torch.empty(shape, dtype=I32, device=dev)
-            for _, _, shape in ins[:5]]
-    outs += [torch.empty((), dtype=I32, device=dev),
-             torch.empty((len(METRIC_FIELDS),), dtype=I32, device=dev)]
-    scratch = _scratch(lib, dev, N)
+    outs = srk.new_outputs(cfg, lead, dev)
+    scratch = _scratch(lib, dev, reps, cfg.num_nodes)
     err = lib.sync_multi_round(
-        *[ctypes.c_void_p(t.data_ptr()) for _, t, _ in ins],
+        *[ctypes.c_void_p(t.data_ptr()) for t in (ca, cv, cs, dm, idx, cnt,
+                                                  round_, seed, metrics)],
         *[ctypes.c_void_p(t.data_ptr()) for t in outs],
-        ctypes.c_void_p(scratch.data_ptr()), N,
+        ctypes.c_void_p(scratch.data_ptr()), reps, cfg.num_nodes,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err != 0:
         raise RuntimeError(f"{_KERNEL} launch failed: CUDA error {err}")
@@ -154,9 +144,11 @@ def fused_round(cfg: SystemConfig, ca, cv, cs, dm, idx, cnt, round_, seed,
                 metrics):
     """One txn_width >= 2 round: cache planes [N, C] x3, dm [E, 7], idx
     and instr_count [N], round and seed (0-d), the counters [11] (in
-    METRIC_FIELDS order); returns the next round's (cache_addr,
-    cache_val, cache_state, dm, idx, round, metrics), all int32. The
-    kernel for CUDA tensors, ``plain_round`` for CPU tensors."""
+    METRIC_FIELDS order), each with a leading replica axis R for an
+    ensemble; returns the next round's (cache_addr, cache_val,
+    cache_state, dm, idx, round, metrics) in the same shapes, all int32.
+    The kernel for CUDA tensors (one launch for all R), ``plain_round``
+    for CPU tensors."""
     if not dm.is_cuda:
         return plain_round(cfg, ca, cv, cs, dm, idx, cnt, round_, seed,
                            metrics)
@@ -170,7 +162,11 @@ def plain_round(cfg: SystemConfig, ca, cv, cs, dm, idx, cnt, round_, seed,
                 metrics):
     """``fused_round``'s plain version, on any device: the tensor code of
     ``sync_engine._round_step_multi`` (the procedural window, the two
-    folds and the middle built in PyTorch, no kernel)."""
+    folds and the middle built in PyTorch, no kernel); for an ensemble,
+    once a replica."""
+    if round_.dim() == 1:
+        return srk.per_replica(plain_round, cfg, (ca, cv, cs, dm, idx, cnt,
+                                                  round_, seed, metrics))
     st = SyncState(cache_addr=ca, cache_val=cv, cache_state=cs, dm=dm,
                    instr_pack=None, instr_count=cnt, idx=idx, horizon=None,
                    seed=seed, round=round_,
@@ -187,9 +183,9 @@ def round_inputs(cfg: SystemConfig, st: SyncState) -> tuple:
 
 def round_step_fused(cfg: SystemConfig, st: SyncState,
                      impl: str = "kernel") -> SyncState:
-    """One txn_width >= 2 round through the round kernel
-    (``impl="kernel"``, which takes the plain round for CPU tensors) or
-    through ``plain_round`` on any device (``impl="plain"``);
+    """One txn_width >= 2 round of a machine or an ensemble through the
+    round kernel (``impl="kernel"``, which takes the plain round for CPU
+    tensors) or through ``plain_round`` on any device (``impl="plain"``);
     bit-identical to ``sync_engine._round_step_multi``."""
     if impl not in ("kernel", "plain"):
         raise ValueError(f"impl must be 'kernel' or 'plain', not {impl!r}")
