@@ -10,10 +10,26 @@ Phases (each prints its own line; any failure exits non-zero):
    round kernel (csrc/deep_round.cu), the sync window engine's
    window/replay and burst kernels (csrc/sync_window.cu,
    csrc/sync_burst.cu) and its fused txn_width 1 and txn_width >= 2
-   rounds (csrc/sync_round.cu, csrc/sync_multi_round.cu) for every
-   config used below, one nvcc per library, all started together;
-   ptxas registers and spill bytes;
-3. kernel vs plain: each fold mode (pre, flags, replay) and the round
+   rounds (csrc/sync_round.cu, csrc/sync_multi_round.cu), the ring
+   exchange and the threefry block of the jax.random twin
+   (csrc/threefry.cu) for every config used below, one nvcc per library,
+   all started together; ptxas registers and spill bytes;
+3. random (slice 9): the threefry kernel against its plain version
+   (``utils.random.plain_block``) bit for bit at 1, 2, 31, 4097 and
+   4096 x 4096 counters under keys of seeds 0, 1, 2^31 + 5 and a chain
+   of splits, draws and key pairs, with its device time, bound, plain
+   time and ptxas figures; the card against the JAX package's draws
+   pinned in RANDOM_REFERENCE (every generator at 256 nodes x 512, seed
+   3; uniform at 4096 x 512, seed 0; a fault-injected async run at 64
+   nodes, drop_prob 0.05, to its cap of 1024 cycles); card against CPU:
+   a fault-injected async run at 256 nodes (every leaf, fault_key
+   included, and injected drops > 0) and a stored-trace sync ensemble as
+   ``bench --replicas 4`` builds it (256 nodes x 64); checkpoints on
+   the card (deep@4096 fused over 16 rounds, sync@4096 K=1 and K=3 over
+   8 rounds, async@4096 uniform with fault injection over 64 cycles):
+   saved half way, loaded and continued, equal to the uninterrupted
+   run, and loaded on the CPU with equal leaves;
+4. kernel vs plain: each fold mode (pre, flags, replay) and the round
    kernel on inputs taken mid-run (after 8 rounds of deep@4096), kernel
    against its plain PyTorch version on the same tensors, bit for bit;
    the round kernel also in a contended 256-node config (three
@@ -23,11 +39,11 @@ Phases (each prints its own line; any failure exits non-zero):
    instructions of the kernel's SASS, counted with ``cuobjdump``; for
    the deep rows capped by the recorded work of DEEP_WORK_PER_NODE,
    both printed);
-4. card vs CPU: 64 rounds of a 256-node copy of the bench deep config
+5. card vs CPU: 64 rounds of a 256-node copy of the bench deep config
    on the card through the fold kernels and through the round kernel,
    each against the plain round on the CPU, every state leaf and metric
    equal;
-5. main paths: ``TransactionalSystem.procedural`` at the bench deep
+6. main paths: ``TransactionalSystem.procedural`` at the bench deep
    defaults (4096 nodes x 4096 instructions, chunk 64) to quiescence
    through the fold kernels (``fused_round`` off), then through the
    round kernel (``fused_round`` on, the bench's default on a card),
@@ -36,7 +52,7 @@ Phases (each prints its own line; any failure exits non-zero):
    equal round counts and equal final states, exact-directory
    invariant; then 8 rounds of each path at 65536 nodes with
    deep_slots=2, equal states;
-6. the sync window engine, the same way: the window, replay and burst
+7. the sync window engine, the same way: the window, replay and burst
    kernels against their plain versions on inputs taken 8 rounds into
    sync@4096 (txn_width 3 / drain_depth 4, and txn_width 1 /
    drain_depth 16) and in a contended 256-node config (locality 0.3:
@@ -60,7 +76,7 @@ Phases (each prints its own line; any failure exits non-zero):
    at 1048576 nodes (txn_width 2) through the fused round against the
    plain rounds; 8 rounds of the 4096-node txn_width 3 machine on stored
    traces made from a seed, card against CPU;
-7. seed ensembles (slice 8): at the sync bench defaults (txn_width 3 /
+8. seed ensembles (slice 8): at the sync bench defaults (txn_width 3 /
    drain_depth 4, then txn_width 1 / drain_depth 16), R = 8 machines
    (seeds 0-7) to quiescence through ``run_ensemble_to_quiescence``:
    one sync_multi_round (sync_round) launch an ensemble round and no
@@ -76,7 +92,7 @@ Phases (each prints its own line; any failure exits non-zero):
    round kernel against solo runs; and ``CoherenceSystem.run_traced`` of
    tests/fixtures/mini on the card (events equal to the CPU's, per-node
    projection equal to instruction_order.txt);
-8. the message-level engine (async) and its routed delivery: the ring
+9. the message-level engine (async) and its routed delivery: the ring
    exchange kernel (csrc/ring_exchange.cu) against its plain version on
    the outbox lanes of the cycle 64 cycles into async@4096 (D = 4 and
    D = 8), every word equal, with its device time, the plain version's
@@ -94,8 +110,13 @@ Phases (each prints its own line; any failure exits non-zero):
    to the JAX package's (its digest and invariant counts, recorded by
    scripts/async_reference.py: the workload is racy, so both invariant
    tiers have counts there, the same on both sides), ring launches ==
-   cycles on the rdma run and 0 on the others; and, with two or more
-   cards, one exchange across real cards against its plain version.
+   cycles on the rdma run and 0 on the others; the JAX bench's default
+   async workload, ``uniform`` (drawn through the threefry kernel, equal
+   to the JAX package's draw), to quiescence, and with fault injection
+   (drop_prob 0.01) for 512 cycles: ms/cycle, threefry launches (two a
+   cycle with faults, none without), a torch.profiler window of device
+   launches a cycle; and, with two or more cards, one exchange across
+   real cards against its plain version.
 
 The line before the last is the card's name and power limit as
 nvidia-smi reports them; before it, one JSON object with a row per
@@ -137,6 +158,8 @@ TPU_KERNELS = {
     "sync_multi_round":
         "ue22cs343bb1_openmp_assignment_tpu/ops/pallas_window.py:161",
     "ring": "ue22cs343bb1_openmp_assignment_tpu/parallel/rdma_comm.py:105",
+    # no TPU kernel: on a TPU jax.random lowers to XLA's threefry2x32
+    "threefry": "none (XLA's threefry2x32)",
 }
 CSRC = "ue22cs343bb1_openmp_assignment_tpu_torch/csrc/"
 SOURCES = {"pre": CSRC + "deep_fold.cu", "flags": CSRC + "deep_fold.cu",
@@ -146,7 +169,8 @@ SOURCES = {"pre": CSRC + "deep_fold.cu", "flags": CSRC + "deep_fold.cu",
            "sync_burst": CSRC + "sync_burst.cu",
            "sync_round": CSRC + "sync_round.cu",
            "sync_multi_round": CSRC + "sync_multi_round.cu",
-           "ring": CSRC + "ring_exchange.cu"}
+           "ring": CSRC + "ring_exchange.cu",
+           "threefry": CSRC + "threefry.cu"}
 FOLD_MODES = ("pre", "flags", "replay")
 SYNC_KERNELS = ("sync_window", "sync_replay", "sync_burst", "sync_round",
                 "sync_multi_round")
@@ -255,7 +279,7 @@ def _is_op(opcode: str) -> bool:
 
 def sass_ops(sass: str, function: str, steps: int, w_loops: int,
              barriers: int = 0, every_path: bool = False,
-             block_barriers: int = 0) -> dict:
+             block_barriers: int = 0, pipe: str = "") -> dict:
     """Integer operations per node of the kernel whose mangled name
     matches ``function``, counted on its machine code (``cuobjdump
     -sass``): the integer instructions that every thread runs for a
@@ -291,6 +315,10 @@ def sass_ops(sass: str, function: str, steps: int, w_loops: int,
       so that stretch is left out, except for a loop's guard (a branch
       over a whole loop to just past its end) and branches into the
       blocks after the main code.
+    - ``pipe`` "fma" counts only the IMAD family, which issues to the
+      FMA pipe, "alu" only the other integer instructions (the integer
+      pipe), "alu_only" those of them that no IMAD could stand in for
+      (all but the IADD family); "" counts them all.
     """
     import re
     ins, cur = [], None
@@ -361,10 +389,21 @@ def sass_ops(sass: str, function: str, steps: int, w_loops: int,
              and not any(at < lo and hi < to <= hi + 64 for lo, hi in loops)]
     sure = [(at, op) for at, op, _ in ins if not fenced(at)
             and not any(a < at < t for a, t in skips)]
+    def counted(op):
+        if not _is_op(op):
+            return False
+        if pipe == "fma":
+            return op.startswith("IMAD")
+        if pipe == "alu":
+            return not op.startswith("IMAD")
+        if pipe == "alu_only":
+            return not op.startswith(("IMAD", "IADD"))
+        return True
+
     in_w = [sum(1 for at, op in ([(at, op) for at, op, _ in ins]
                                  if every_path else sure)
-                if lo <= at <= hi and _is_op(op)) for lo, hi in wl]
-    once = sum(1 for at, op in sure if _is_op(op)
+                if lo <= at <= hi and counted(op)) for lo, hi in wl]
+    once = sum(1 for at, op in sure if counted(op)
                and not any(lo <= at <= hi for lo, hi in wl))
     return dict(per_node=sum(in_w) * steps + once, per_step=in_w, once=once,
                 skippable=len(ins) - len(sure), instructions=len(ins))
@@ -1457,6 +1496,62 @@ ASYNC_REFERENCE = {
 }
 
 
+#: The JAX package's draws that the card must reproduce (``random``
+#: phase), held to the JAX package by tests/test_torch_workloads.py and
+#: tests/test_torch_faults.py: ``workload_digest`` of every generator's
+#: four arrays at 256 nodes x 512 (``SystemConfig.scale``, seed 3) and of
+#: ``uniform`` at 4096 nodes x 512 (seed 0); and the run of the
+#: ``uniform`` workload (seed 0) at 64 nodes with drop_prob 0.05 to a cap
+#: of 1024 cycles (dropped messages strand requesters: it never
+#: quiesces): counters, ``convert.leaves_digest`` of its leaves and the
+#: sha256 of its joined dumps.
+RANDOM_REFERENCE = {
+    "generators": {
+        "false_sharing": "b267e17e9f48c037ea752450310e3b80"
+                         "77400b7c885e244ba8469977d05c83d0",
+        "false_sharing_vars": "b864e3624bffa55bc8032a3a5c6ca898"
+                              "fee28067ea5ae85fca307f6dfef6fa07",
+        "false_sharing_vars_padded": "144bef356153ad73ce7d4ef0f38efad3"
+                                     "051ed125f6f3b5ab64116b68d18576ad",
+        "fft": "2937ace95aee65e24b8642bfb4d2658a"
+               "271a4685e4b9af1809567ebf1724b4c7",
+        "hotspot": "4d946328447151ab9873d8125a621138"
+                   "c55cc8317c85ea3bc337b56b44a974fe",
+        "lu": "6751d3b7d959409b30a6c783df756cbb"
+              "7039cdcf4d148916f492c84844967eb1",
+        "procedural_uniform": "f2661add0870d05f2e8331aa6f3e4ed9"
+                              "e6950063b607b0ead95ad8925c157c6f",
+        "producer_consumer": "0652af83bddb09624fdbfcc82eff57c4"
+                             "968ce875ceb97c7ca15684f36cdcdeee",
+        "radix": "bcb1978d656da292a9352911573d7fad"
+                 "cb69f85b20544a06816e88527018d6f9",
+        "uniform": "c00a7136480dc218bc5ddd850dbc7614"
+                   "9516518bc5acf41a12b02d626c70bd69",
+        "zipf_hotspot": "c64d360f9348dc36c3f24c5d51cf50db"
+                        "d67070f2197e5793d83dc1239c31e0d6",
+    },
+    "uniform_4096": ("4bd359131c477ec834d8b1ff25c44bc1"
+                     "8dba790abb13925ec2aead652dc49ea4"),
+    "faults": {
+        "cycles": 1024, "instrs_retired": 831, "msgs_injected_dropped": 93,
+        "digest": ("22c9e98483ef0b2eae89858fd64f72c9"
+                   "06f91a7acde998ea1c27cf21e608de32"),
+        "dumps": ("eae08fc1ebd60b253de3d830f43509a6"
+                  "5a1240eef56e6c432c330dce55ec162e"),
+    },
+}
+
+
+def workload_digest(arrays) -> str:
+    """``convert.leaves_digest`` of a generator's (op, addr, val, count),
+    numpy arrays or tensors on any device."""
+    import numpy as np
+    from ue22cs343bb1_openmp_assignment_tpu_torch import convert
+    return convert.leaves_digest({
+        k: np.asarray(a.cpu() if hasattr(a, "cpu") else a)
+        for k, a in zip(("op", "addr", "val", "count"), arrays)})
+
+
 def async_cfg(num_nodes: int, trace_len: int, transport: str = "rdma",
               **kw):
     """The async bench config (scatter INV, queue capacity 64, locality
@@ -1654,6 +1749,311 @@ def phase_async_main_path(rows: dict) -> None:
         f"{c0} cycles, every leaf equal")
 
 
+# -- the threefry twin of jax.random (slice 9) -------------------------------
+
+#: counts of the kernel-vs-plain check: a lone counter, a split's two,
+#: the generators' 5-way split, an odd count, a grid's tail block, and the
+#: uniform workload's draw at the bench size (4096 nodes x 4096
+#: instructions); the fault draw of one async@4096 cycle joins them
+THREEFRY_COUNTS = (1, 2, 5, 31, 4097, 4096 * 4096)
+#: the async main path with fault injection: its rate, and the cycles it
+#: runs (it never quiesces: dropped messages strand requesters)
+FAULTS = dict(drop_prob=0.01, cycles=512, profile_cycles=32)
+
+
+def threefry_keys(device):
+    """Keys of seeds 0, 1 and 2^31 + 5, and one from a chain of splits."""
+    from ue22cs343bb1_openmp_assignment_tpu_torch.utils import random as jr
+    keys = [jr.prng_key(s, device) for s in (0, 1, 2**31 + 5)]
+    keys.append(jr.split(jr.split(keys[2], 3)[1], 5)[4])
+    return keys
+
+
+def _threefry_kernel_vs_plain() -> dict:
+    """The kernel against its plain version, bit for bit, at every count
+    of THREEFRY_COUNTS, the fault draw of one async@4096 cycle, and every
+    key of ``threefry_keys``, draws and key pairs; its time, bound and
+    ptxas figures at the largest count; returns its row."""
+    import re
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
+        threefry_kernel as tk)
+    from ue22cs343bb1_openmp_assignment_tpu_torch.utils import random as jr
+    keys = threefry_keys("cuda")
+    fault_n = ASYNC["num_nodes"] * async_cfg(ASYNC["num_nodes"],
+                                             ASYNC["trace_len"]).out_slots
+    counts = sorted(THREEFRY_COUNTS + (fault_n,))
+    for n in counts:
+        for key in keys:
+            for pair in (False, True):
+                compare(f"threefry n={n} pair={pair}",
+                        [("out", tk.block(key, n, pair))],
+                        [("out", jr.plain_block(key, n, pair))])
+    n = THREEFRY_COUNTS[-1]
+    key = keys[0]
+    ms = kernel_ms(lambda: [tk.block(key, n) for _ in range(20)],
+                   "threefry_kernel")
+    small = {c: kernel_ms(lambda c=c: [tk.block(key, c) for _ in range(20)],
+                          "threefry_kernel") for c in (2, fault_n)}
+    plain_ms = event_ms(lambda: jr.plain_block(key, n), 3)
+    # Two pipes of 64 lanes an SM issue integer instructions: the IMAD
+    # family the FMA pipe, the rest the integer pipe. An add may issue
+    # as an IMAD, so the function's floor is the larger of the
+    # instructions that need the integer pipe (rotates, xors) over one
+    # pipe and all integer instructions over both, in integer-pipe
+    # issue slots. This SASS's own split (alu, fma) explains the time.
+    sass = kernel_sass(tk.LIBRARY, None)
+    threads = tk.LIBRARY.load(None).threefry_grid(n) * 256
+    count = {}
+    for pipe in ("", "alu_only", "alu", "fma"):
+        c = sass_ops(sass, r"threefry_kernelILb0E", 1, 1, pipe=pipe)
+        count[pipe or "all"] = (sum(c["per_step"]), c["once"])
+    total = {p: n * a + threads * b for p, (a, b) in count.items()}
+    ops = max(total["alu_only"], -(-total["all"] // 2))
+    sass_bound_ms = max(total["alu"], total["fma"]) / INT32_OPS_PER_S * 1e3
+    io_bytes = sum(tk.io_contract_bytes(n))
+    r = dict(row("threefry", "threefry", ms, plain_ms, io_bytes, ops))
+    ptxas = tk.LIBRARY.ptxas_summary(None)
+    _, log = tk.LIBRARY.paths(())
+    smem = sorted(set(re.findall(r"(\d+) bytes smem", log.read_text())))
+    if not ptxas:
+        raise SmokeFailure("threefry: no ptxas report from the build")
+    say("random", f"threefry: kernel equal to plain word for word at "
+        f"counts {counts} x {len(keys)} keys, draws and key "
+        f"pairs; at {n} counters kernel {ms:.4f} ms, plain {plain_ms:.2f} "
+        f"ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}: {io_bytes} B, "
+        f"{ops} integer-pipe issue slots = max(integer-pipe-only "
+        f"{total['alu_only']}, all {total['all']} / 2); (a counter, a "
+        f"thread) by class {count}, {threads} threads); this SASS's bound "
+        f"(its busier pipe) {sass_bound_ms:.5f} ms; at 2 counters "
+        f"{small[2]:.4f} ms, at {fault_n} (one async@4096 cycle's fault "
+        f"draw) {small[fault_n]:.4f} ms; ptxas {ptxas}, shared memory "
+        f"{smem or ['0']} B; library call: none (torch's Philox is a "
+        "different stream)")
+    return r
+
+
+def _card_matches_jax_draws() -> None:
+    """The card reproduces the JAX package's draws (RANDOM_REFERENCE):
+    every generator at 256 nodes x 512 (seed 3), uniform at 4096 x 512
+    (seed 0), and the fault-injected run at 64 nodes."""
+    import hashlib
+    from ue22cs343bb1_openmp_assignment_tpu_torch import convert
+    from ue22cs343bb1_openmp_assignment_tpu_torch.config import SystemConfig
+    from ue22cs343bb1_openmp_assignment_tpu_torch.models import workloads
+    from ue22cs343bb1_openmp_assignment_tpu_torch.models.system import (
+        CoherenceSystem)
+    ref = RANDOM_REFERENCE
+    cfg = SystemConfig.scale(num_nodes=256)
+    got = {name: workload_digest(gen(3, cfg, 512, device="cuda"))
+           for name, gen in workloads.GENERATORS.items()}
+    bad = sorted(k for k in got if got[k] != ref["generators"].get(k))
+    if bad or set(got) != set(ref["generators"]):
+        raise SmokeFailure(f"generators on the card differ from the JAX "
+                           f"package's draws: {bad}")
+    big = workload_digest(workloads.uniform_random(
+        0, SystemConfig.scale(num_nodes=4096), 512, device="cuda"))
+    if big != ref["uniform_4096"]:
+        raise SmokeFailure("uniform at 4096 x 512 on the card differs from "
+                           "the JAX package's draw")
+    faults = ref["faults"]
+    fcfg = SystemConfig.scale(num_nodes=64, drop_prob=0.05)
+    done = CoherenceSystem.from_workload(fcfg, "uniform", seed=0,
+                                         device="cuda").run(
+        faults["cycles"], chunk=64)
+    m = done.metrics
+    run = {"cycles": m["cycles"], "instrs_retired": m["instrs_retired"],
+           "msgs_injected_dropped": m["msgs_injected_dropped"],
+           "digest": convert.leaves_digest(
+               convert.sim_numpy_leaves(done.state)),
+           "dumps": hashlib.sha256("".join(done.dumps()).encode())
+           .hexdigest()}
+    if run != faults:
+        raise SmokeFailure(f"the fault-injected run on the card differs "
+                           f"from the JAX package's: {run} vs {faults}")
+    say("random", f"card = JAX package: {len(got)} generators at 256 x 512 "
+        f"(seed 3), uniform at 4096 x 512 (seed 0), and the fault-injected "
+        f"run at 64 nodes (drop_prob 0.05, {m['cycles']} cycles, "
+        f"{m['msgs_injected_dropped']} injected drops, leaves digest "
+        f"{run['digest'][:16]}, dumps digest {run['dumps'][:16]})")
+
+
+def _random_card_vs_cpu() -> None:
+    """A fault-injected async run at 256 nodes and a stored-trace sync
+    ensemble as ``bench --replicas 4`` builds it, card against CPU."""
+    from ue22cs343bb1_openmp_assignment_tpu_torch import bench, convert
+    from ue22cs343bb1_openmp_assignment_tpu_torch.models.system import (
+        CoherenceSystem)
+    from ue22cs343bb1_openmp_assignment_tpu_torch.models.transactional \
+        import TransactionalSystem
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import sync_engine as se
+    cfg = async_cfg(256, 32, drop_prob=0.05)
+    leaves = {}
+    for dev in ("cpu", "cuda"):
+        sys0 = CoherenceSystem.from_workload(cfg, "uniform", seed=0,
+                                             device=dev)
+        done, wall, counts = _async_run(cfg, sys0, 1, "rdma", 16, 192)
+        leaves[dev] = convert.sim_numpy_leaves(done.state)
+    bad = _leaves_differ(leaves["cpu"], leaves["cuda"])
+    injected = int(leaves["cuda"]["metrics.msgs_injected_dropped"])
+    if bad or injected <= 0 or counts["threefry"] != 2 * 192:
+        raise SmokeFailure(f"fault-injected async 256 nodes: card and CPU "
+                           f"differ in leaf {bad}; {injected} injected "
+                           f"drops, {counts['threefry']} threefry launches "
+                           "in 192 cycles")
+    say("random", f"fault-injected async 256 nodes x 32 (drop_prob 0.05, "
+        f"192 cycles): every leaf equal to the CPU's, fault_key "
+        f"{leaves['cuda']['fault_key'].tolist()}, {injected} injected drops, "
+        f"{counts['threefry']} threefry launches ({wall:.1f} s)")
+    scfg = dataclasses.replace(sync_cfg(256, 3), procedural=None,
+                               max_instrs=64)
+    finals = {}
+    for dev in ("cpu", "cuda"):
+        ens = se.make_ensemble([TransactionalSystem.from_workload(
+            scfg, "uniform", 64, workload_seed=r, seed=r, device=dev,
+            **bench.gen_kwargs("uniform", 0.8)).state for r in range(4)])
+        finals[dev] = se.run_ensemble_to_quiescence(scfg, ens, 16, 10_000)
+    a, b = (convert.to_numpy(finals[d]) for d in ("cpu", "cuda"))
+    bad = _leaves_differ(a, b)
+    retired = int(finals["cuda"].metrics.instrs_retired.sum())
+    if bad or retired != 4 * 256 * 64:
+        raise SmokeFailure(f"stored-trace ensemble R=4 x 256: card and CPU "
+                           f"differ in leaf {bad}; retired {retired}")
+    say("random", f"stored-trace sync ensemble (bench --replicas 4 at 256 "
+        f"nodes x 64, uniform seeds 0-3): {int(finals['cuda'].metrics.rounds[0])} "
+        f"rounds, every leaf equal to the CPU's, {retired} retired")
+
+
+def _checkpoints_on_card() -> None:
+    """Save mid-run on the card, load, continue: equal to the
+    uninterrupted run; the checkpoint loads on the CPU with equal
+    leaves. Deep@4096 fused (16 rounds), sync K=1 and K=3 (8 rounds),
+    async@4096 uniform with fault injection (64 cycles)."""
+    import os
+    import tempfile
+    from ue22cs343bb1_openmp_assignment_tpu_torch import convert
+    from ue22cs343bb1_openmp_assignment_tpu_torch.models.system import (
+        CoherenceSystem)
+    from ue22cs343bb1_openmp_assignment_tpu_torch.models.transactional \
+        import TransactionalSystem
+    from ue22cs343bb1_openmp_assignment_tpu_torch.utils import checkpoint
+    N = BENCH["num_nodes"]
+    cases = [("deep@4096 fused", TransactionalSystem,
+              lambda: TransactionalSystem.procedural(
+                  bench_cfg(N, True), BENCH["trace_len"], device="cuda"),
+              lambda s, n: s.run_rounds(n), 16, convert.to_numpy)]
+    for K in (1, 3):
+        cases.append((f"sync@4096 K={K}", TransactionalSystem,
+                      lambda K=K: TransactionalSystem.procedural(
+                          sync_cfg(N, K), BENCH["trace_len"],
+                          device="cuda"),
+                      lambda s, n: s.run_rounds(n), 8, convert.to_numpy))
+    acfg = async_cfg(N, ASYNC["trace_len"], drop_prob=FAULTS["drop_prob"])
+    cases.append(("async@4096 uniform, drop_prob 0.01", CoherenceSystem,
+                  lambda: CoherenceSystem.from_workload(acfg, "uniform",
+                                                        device="cuda"),
+                  lambda s, n: s.run_cycles(n), 64,
+                  lambda st: convert.sim_numpy_leaves(st)))
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, cls, fresh, advance, steps, leaves in cases:
+            path = os.path.join(tmp, "ck.npz")
+            whole = advance(fresh(), steps)
+            half = advance(fresh(), steps // 2)
+            half.save(path)
+            resumed = advance(cls.load(path), steps // 2)
+            bad = _leaves_differ(leaves(whole.state), leaves(resumed.state))
+            on_cpu = cls.load(path, device="cpu")
+            bad_cpu = _leaves_differ(leaves(half.state), leaves(on_cpu.state))
+            if bad or bad_cpu:
+                raise SmokeFailure(f"checkpoint {label}: the resumed run "
+                                   f"differs in leaf {bad}, the CPU's load in "
+                                   f"leaf {bad_cpu}")
+            say("random", f"checkpoint {label}: saved after {steps // 2}, "
+                f"resumed to {steps}: every leaf equal to the uninterrupted "
+                f"run; loaded on the CPU with equal leaves "
+                f"({checkpoint.checkpoint_bytes(half.state)} B)")
+
+
+def phase_random(rows: dict) -> None:
+    """This slice's paths: the threefry kernel, the card against the JAX
+    package's draws and against the CPU, and checkpoints on the card."""
+    t0 = time.perf_counter()
+    rows["threefry"] = _threefry_kernel_vs_plain()
+    _card_matches_jax_draws()
+    _random_card_vs_cpu()
+    _checkpoints_on_card()
+    say("random", f"random phase took {time.perf_counter() - t0:.1f} s")
+
+
+def phase_async_uniform(rows: dict) -> None:
+    """The async main path on the JAX bench's default workload: uniform
+    at 4096 x 512, unrouted, to quiescence, then with fault injection
+    (drop_prob 0.01) for FAULTS["cycles"] cycles, each with a
+    torch.profiler window; the kernel launches of each run, the
+    workload's build included."""
+    from ue22cs343bb1_openmp_assignment_tpu_torch import bench
+    from ue22cs343bb1_openmp_assignment_tpu_torch.models.system import (
+        CoherenceSystem)
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import step
+    import torch
+    N, length = ASYNC["num_nodes"], ASYNC["trace_len"]
+    for drop in (0.0, FAULTS["drop_prob"]):
+        cfg = async_cfg(N, length, drop_prob=drop)
+        torch.cuda.synchronize()
+        bench.reset_launch_counts()
+        sys0 = CoherenceSystem.from_workload(cfg, "uniform", device="cuda")
+        torch.cuda.synchronize()
+        built = bench.launch_counts()["threefry"]
+        if workload_digest((sys0.state.instr_op, sys0.state.instr_addr,
+                            sys0.state.instr_val, sys0.state.instr_count)) \
+                != RANDOM_REFERENCE["uniform_4096"]:
+            raise SmokeFailure("the async main path's uniform workload "
+                               "differs from the JAX package's draw")
+        cap = FAULTS["cycles"] if drop else 200 * length
+        done, wall, counts = _async_run(cfg, sys0, 1, "rdma",
+                                        ASYNC["chunk"], cap)
+        m = done.metrics
+        cycles = m["cycles"]
+        if drop:
+            want = 2 * cycles
+            if (cycles != cap or counts["threefry"] != want
+                    or m["msgs_injected_dropped"] <= 0):
+                raise SmokeFailure(f"async@{N} uniform with drop_prob {drop}: "
+                                   f"{cycles} cycles, {counts['threefry']} "
+                                   f"threefry launches (want {want}), "
+                                   f"{m['msgs_injected_dropped']} injected "
+                                   "drops")
+            rows["threefry"]["launches"] = built + counts["threefry"]
+        elif (not done.quiescent or m["instrs_retired"] != N * length
+              or counts["threefry"]):
+            raise SmokeFailure(f"async@{N} uniform: quiescent "
+                               f"{done.quiescent}, retired "
+                               f"{m['instrs_retired']}, threefry launches "
+                               f"{counts['threefry']}")
+        others = {k: v for k, v in counts.items() if v and k != "threefry"}
+        if others:
+            raise SmokeFailure(f"async@{N} uniform (drop_prob {drop}): "
+                               f"launches of {others}")
+        st = step.run_cycles(cfg, CoherenceSystem.from_workload(
+            cfg, "uniform", device="cuda").state, 64)
+        prof = bench.profile_steps(lambda s: step.cycle(cfg, s), st,
+                                   FAULTS["profile_cycles"])
+        say("main", f"async@{N} x {length} uniform (the JAX bench's default "
+            f"workload), plain delivery, drop_prob {drop}: "
+            f"{'quiescent after' if not drop else 'ran'} {cycles} cycles, "
+            f"{m['instrs_retired'] / wall:.6g} instrs/sec, "
+            f"{wall * 1e3 / cycles:.4f} ms/cycle, wall {wall:.2f} s, "
+            f"{m['msgs_injected_dropped']} injected drops, "
+            f"{m['msgs_dropped']} overflow drops; threefry launches "
+            f"{built} building the workload, {counts['threefry']} in the "
+            f"run; profiler over {FAULTS['profile_cycles']} cycles: "
+            f"{prof['device_launches_per_round']:.2f} device launches a "
+            f"cycle, busy {prof['device_busy_ms_per_round']:.4f} ms, idle "
+            f"share {prof['device_idle_share']:.3f}, wall "
+            f"{prof['wall_ms_per_round']:.4f} ms a cycle, threefry "
+            f"{prof['kernel_ms_per_round'].get('threefry', 0):.4f} ms a "
+            f"cycle")
+
+
 def phase_multi_card() -> None:
     import torch
     from ue22cs343bb1_openmp_assignment_tpu_torch.parallel import ring_kernel
@@ -1702,6 +2102,8 @@ def main() -> int:
         from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
             deep_fold_kernel, deep_round_kernel, sync_burst_kernel,
             sync_multi_round_kernel, sync_round_kernel, sync_window_kernel)
+        from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
+            threefry_kernel)
         from ue22cs343bb1_openmp_assignment_tpu_torch.parallel import (
             ring_kernel)
         cfg = bench_cfg(BENCH["num_nodes"])
@@ -1726,10 +2128,13 @@ def main() -> int:
                          sync_contended_cfg(3),
                          sync_cfg(SYNC_ROUND_BIG, 3),
                          sync_cfg(SYNC_BIG, 2))]
-            # one ring library serves every (D, shape): both are run-time
-            # arguments
-            + [(ring_kernel.LIBRARY, None)])
+            # one ring library serves every (D, shape), one threefry
+            # library every key, count and mode: all run-time arguments
+            + [(ring_kernel.LIBRARY, None), (threefry_kernel.LIBRARY, None)])
+        random_rows = {}
+        phase_random(random_rows)
         rows, st = phase_kernel_vs_plain(cfg)
+        rows.update(random_rows)
         rows["round"] = phase_round_vs_plain(cfg, st)
         phase_card_vs_cpu()
         phase_main_path(rows)
@@ -1742,13 +2147,14 @@ def main() -> int:
         rows["ring"] = phase_ring_kernel()
         phase_async_card_vs_cpu()
         phase_async_main_path(rows)
+        phase_async_uniform(rows)
         phase_multi_card()
     except (SmokeFailure, AssertionError, RuntimeError, ValueError) as e:
         print(f"FAIL: {type(e).__name__}: {e}", flush=True)
         return 1
     say("done", f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [rows[k] for k in FOLD_MODES + ("round",)
-                                  + SYNC_KERNELS + ("ring",)]}))
+                                  + SYNC_KERNELS + ("ring", "threefry")]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

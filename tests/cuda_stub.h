@@ -1,9 +1,10 @@
 // A CPU stand-in for the few parts of the CUDA runtime that the port's
 // cooperative round kernels use (csrc/sync_round.cu,
-// csrc/sync_multi_round.cu), so that g++ can build them into a shared
-// library and tests/test_torch_cuda_stub.py can call their C entry
-// points on CPU tensors. It is a check of the kernels' logic and of
-// their races, not of what nvcc makes of them.
+// csrc/sync_multi_round.cu) and the threefry kernel's ordinary launch
+// (csrc/threefry.cu), so that g++ can build them into a shared library
+// and tests/test_torch_cuda_stub.py can call their C entry points on CPU
+// tensors. It is a check of the kernels' logic and of their races, not
+// of what nvcc makes of them.
 //
 // - Each CUDA thread is a std::thread; a launch runs one block (the
 //   occupancy query reports one SM that holds one block), so the grid
@@ -16,6 +17,10 @@
 //   happen as they would on the card, in no fixed order.
 // - atomicMin and atomicAdd are std::atomic_ref operations; __ldg is a
 //   plain load.
+//
+// - An ordinary launch (cudaLaunchKernel, for a kernel with no barrier)
+//   runs every block of the grid, block after block, and every thread of
+//   a block after the other, on the calling thread.
 //
 // The kernel sources include <cuda_runtime.h> and <cooperative_groups.h>;
 // the test points both names at this file.
@@ -52,6 +57,10 @@ struct alignas(16) int4 {
   int x, y, z, w;
 };
 inline int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
+struct alignas(8) uint2 {
+  unsigned x, y;
+};
+inline uint2 make_uint2(unsigned x, unsigned y) { return {x, y}; }
 
 typedef void* cudaStream_t;
 enum cudaError_t {
@@ -138,6 +147,10 @@ inline cudaError_t cudaGetDevice(int* dev) {
   return cudaSuccess;
 }
 
+inline cudaError_t cudaSetDevice(int dev) {
+  return dev == 0 ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr,
                                           int) {
   *value = 1;  // one SM; cooperative launches supported
@@ -200,5 +213,26 @@ inline cudaError_t cudaLaunchCooperativeKernel(const void* kernel, dim3 grid,
     });
   for (auto& th : threads) th.join();
   cuda_stub::launch = nullptr;
+  return cudaSuccess;
+}
+
+// An ordinary launch of a kernel without barriers: every (block, thread)
+// of the grid in turn on the calling thread, complete when the call
+// returns.
+template <class A>
+inline cudaError_t cudaLaunchKernel(void (*kernel)(A), dim3 grid, dim3 block,
+                                    void** args, size_t, cudaStream_t) {
+  if (grid.y != 1 || grid.z != 1 || block.y != 1 || block.z != 1 ||
+      block.x == 0 || block.x > cuda_stub::MAX_THREADS)
+    return cudaErrorInvalidValue;
+  const A a = *static_cast<const A*>(args[0]);
+  cuda_stub::grid_dim = grid;
+  cuda_stub::block_dim = block;
+  for (unsigned b = 0; b < grid.x; ++b)
+    for (unsigned t = 0; t < block.x; ++t) {
+      cuda_stub::block_idx = {b, 0, 0};
+      cuda_stub::thread_idx = {t, 0, 0};
+      kernel(a);
+    }
   return cudaSuccess;
 }

@@ -6,7 +6,8 @@ Lockstep, cycle by cycle, on the in-repo fixture tests/fixtures/mini
 knobs (arbitration rank, issue delay and period) on the same fixture;
 ``procedural_uniform`` at 64 nodes in scatter mode run to quiescence
 (state, metrics, coherence report); a run whose overflowing rings strand
-requesters (the stall watchdog); and what waits for the threefry twin.
+requesters (the stall watchdog); and fault injection and the random
+workloads, which now draw from the threefry twin of jax.random.
 """
 
 import dataclasses
@@ -153,15 +154,30 @@ def test_run_cycles_step_and_run_checked_agree():
 
 
 def test_fault_injection_and_random_workloads_wait_for_threefry():
-    _, tcfg = cfg_pair(16, drop_prob=0.25)
-    with pytest.raises(NotImplementedError, match="threefry"):
-        init_state(tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="threefry"):
-        CoherenceSystem.from_workload(tcfg, "procedural_uniform",
-                                      device="cpu")
-    _, ok = cfg_pair(16)
-    with pytest.raises(NotImplementedError, match="threefry"):
-        CoherenceSystem.from_workload(ok, "uniform", device="cpu")
+    """The three calls that waited for the threefry twin of jax.random
+    now draw from it (``utils.random``): ``init_state`` under drop_prob
+    0.25, ``from_workload`` under that config, and the JAX default
+    workload ``uniform``. Each builds, with leaves equal to the JAX
+    package's, and the fault-injected machine's first cycles drop
+    messages from the same stream as JAX's."""
+    from ue22cs343bb1_openmp_assignment_tpu.state import (
+        init_state as jax_init_state)
+    jcfg, tcfg = cfg_pair(16, drop_prob=0.25)
+    assert_sim_states_equal(jax_init_state(jcfg),
+                            init_state(tcfg, device="cpu"))
+    jsys = JaxSystem.from_workload(jcfg, "procedural_uniform")
+    tsys = CoherenceSystem.from_workload(tcfg, "procedural_uniform",
+                                         device="cpu")
+    assert_sim_states_equal(jsys.state, tsys.state)
+    js, ts = jsys.state, tsys.state
+    for n in range(12):
+        js, ts = _jax_cycle()(jcfg, js), step.cycle(tcfg, ts)
+        assert_sim_states_equal(js, ts, f"cycle {n + 1}: ")
+    assert int(ts.metrics.msgs_injected_dropped) > 0
+    jok, ok = cfg_pair(16)
+    assert_sim_states_equal(
+        JaxSystem.from_workload(jok, "uniform").state,
+        CoherenceSystem.from_workload(ok, "uniform", device="cpu").state)
     assert set(workloads.GENERATORS) == {
         "uniform", "producer_consumer", "false_sharing",
         "false_sharing_vars", "false_sharing_vars_padded", "fft", "radix",

@@ -1,7 +1,9 @@
 """The CUDA kernels (the deep fold, the fused round, the sync window
 engine's window, replay and burst kernels, its fused txn_width 1 and
-txn_width >= 2 rounds with their replica axis, and the routed
-transport's ring exchange) against their plain versions, on the card.
+txn_width >= 2 rounds with their replica axis, the routed transport's
+ring exchange, and the threefry block of the jax.random twin) against
+their plain versions, on the card; the workload generators, fault
+injection and checkpoints on the card against the CPU.
 
 Marked ``cuda``: each test skips without a card (decided inside the
 fixture, never at import). The card machine has no JAX, so run this file
@@ -557,3 +559,79 @@ def test_ring_exchange_across_cards(card):
                                    ring_kernel.plain_exchange_across(obs))):
         torch.cuda.synchronize(d)
         assert a.device == b.device and torch.equal(a, b), d
+
+
+# -- the threefry kernel of the jax.random twin --------------------------------
+
+@pytest.mark.parametrize("n", [1, 2, 31, 4097, 1 << 20])
+def test_threefry_kernel_equals_plain(card, n):
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import threefry_kernel
+    from ue22cs343bb1_openmp_assignment_tpu_torch.utils import random as jr
+    keys = [jr.prng_key(s, card) for s in (0, 1, 2**31 + 5)]
+    keys.append(jr.split(jr.split(keys[2], 3)[1], 5)[4])
+    for key in keys:
+        for pair in (False, True):
+            before = threefry_kernel.block.launches
+            got = threefry_kernel.block(key, n, pair)
+            assert threefry_kernel.block.launches == before + 1
+            want = jr.plain_block(key, n, pair)
+            assert torch.equal(got, want), (n, pair, key.tolist())
+            assert torch.equal(got.cpu(), jr.plain_block(key.cpu(), n,
+                                                         pair))
+
+
+def test_threefry_wrapper_refuses_bad_operands(card):
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import threefry_kernel
+    with pytest.raises(ValueError, match="key"):
+        threefry_kernel.block(torch.zeros(2, dtype=torch.int64,
+                                          device=card), 4)
+    with pytest.raises(ValueError, match="key"):
+        threefry_kernel.block(torch.zeros(3, dtype=torch.int32,
+                                          device=card), 4)
+
+
+def test_generators_and_fault_runs_on_card_equal_cpu(card):
+    """Every generator at 64 nodes x 32 (seed 3) draws the CPU's arrays
+    through the kernel; a fault-injected run (drop_prob 0.25) equals the
+    CPU's leaf for leaf after 48 cycles."""
+    from ue22cs343bb1_openmp_assignment_tpu_torch.models import workloads
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import threefry_kernel
+    cfg = SystemConfig.scale(num_nodes=64)
+    for name, gen in workloads.GENERATORS.items():
+        before = threefry_kernel.block.launches
+        got = gen(3, cfg, 32, device=card)
+        want = gen(3, cfg, 32, device="cpu")
+        for a, b in zip(got, want):
+            assert a.is_cuda and torch.equal(a.cpu(), b), name
+        assert (threefry_kernel.block.launches > before) == (
+            name != "procedural_uniform"), name
+    faulty = dataclasses.replace(cfg, drop_prob=0.25, max_instrs=16)
+    runs = [step.run_cycles(faulty, CoherenceSystem.from_workload(
+        faulty, "uniform", seed=1, device=d).state, 48)
+        for d in (card, "cpu")]
+    a, b = (convert.sim_numpy_leaves(r) for r in runs)
+    for k in b:
+        assert (a[k] == b[k]).all(), k
+    assert int(runs[1].metrics.msgs_injected_dropped) > 0
+
+
+def test_checkpoint_written_on_card_loads_on_cpu(card, tmp_path):
+    from ue22cs343bb1_openmp_assignment_tpu_torch.models.transactional \
+        import TransactionalSystem
+    cfg = dataclasses.replace(SystemConfig.scale(num_nodes=64,
+                                                 drop_prob=0.05),
+                              max_instrs=16)
+    sys_ = CoherenceSystem.from_workload(cfg, device=card).run_cycles(20)
+    sys_.save(str(tmp_path / "sim.npz"))
+    cpu = CoherenceSystem.load(str(tmp_path / "sim.npz"), device="cpu")
+    a, b = (convert.sim_numpy_leaves(s.state) for s in (sys_, cpu))
+    for k in a:
+        assert (a[k] == b[k]).all(), k
+    t = TransactionalSystem.from_workload(cfg, "lu", device=card)
+    t = t.run_rounds(4)
+    t.save(str(tmp_path / "sync.npz"))
+    back = TransactionalSystem.load(str(tmp_path / "sync.npz"))
+    assert back.state.device.type == "cuda"
+    a, b = convert.to_numpy(t.state), convert.to_numpy(back.state)
+    for k in a:
+        assert (a[k] == b[k]).all(), k

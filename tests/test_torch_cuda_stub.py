@@ -17,6 +17,12 @@ replicas in turn, flushing each one's counters after every phase), and a
 mutant whose replica view puts a replica's directory rows at the wrong
 offset, so that its claims land in another replica's dm, must be caught.
 
+The threefry kernel of the jax.random twin (``csrc/threefry.cu``, an
+ordinary launch) is built the same way and held to its plain version
+(``utils.random.plain_block``) word for word, draws and key pairs, over
+grids of one to seventeen blocks; a mutant with one rotation changed
+must be caught.
+
 This checks the kernels' logic and their races between nodes, not what
 nvcc makes of them: the card's check is ``tests/test_torch_cuda.py`` and
 ``chip_smoke.py``. Skips where g++ is absent.
@@ -39,6 +45,8 @@ from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
     sync_multi_round_kernel as smk)
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
     sync_round_kernel as srk)
+from ue22cs343bb1_openmp_assignment_tpu_torch.ops import threefry_kernel
+from ue22cs343bb1_openmp_assignment_tpu_torch.utils import random as jr
 
 STUB = pathlib.Path(__file__).resolve().with_name("cuda_stub.h")
 GXX_FLAGS = ("-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-w")
@@ -251,3 +259,81 @@ def test_stub_mutant_claims_across_replicas_are_caught(stub_libs):
         differ = [name for name, a, b in zip(OUTPUTS, got, want)
                   if not torch.equal(a, b)]
         assert bool(differ) == caught, (reps, differ)
+
+
+# -- the threefry kernel -------------------------------------------------------
+
+#: the threefry mutant: the second group's last rotation 24 -> 25
+THREEFRY_MUTANT = ("THREEFRY_ROUNDS(17, 29, 16, 24)\n  x0 += k1;",
+                   "THREEFRY_ROUNDS(17, 29, 16, 25)\n  x0 += k1;")
+
+
+@pytest.fixture(scope="module")
+def threefry_libs(tmp_path_factory):
+    """{"kernel": the stub-built threefry library, "mutant": its
+    mutant's}, both g++ processes started together."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ (builds the CUDA sources against a CPU stub)")
+    root = tmp_path_factory.mktemp("threefry_stub")
+    include = root / "include"
+    include.mkdir()
+    for name in ("cuda_runtime.h", "cooperative_groups.h"):
+        (include / name).write_text(f'#include "{STUB}"\n')
+    mutant_csrc = root / "mutant_csrc"
+    mutant_csrc.mkdir()
+    text = threefry_kernel.LIBRARY.source.read_text()
+    assert text.count(THREEFRY_MUTANT[0]) == 1
+    (mutant_csrc / "threefry.cu").write_text(text.replace(*THREEFRY_MUTANT))
+    procs = {name: (root / f"{name}.so", subprocess.Popen(
+        gxx_command(threefry_kernel.LIBRARY, None, include,
+                    root / f"{name}.so", csrc),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for name, csrc in (("kernel", kernel_build.CSRC),
+                           ("mutant", mutant_csrc))}
+    libs = {}
+    for name, (out, proc) in procs.items():
+        log, _ = proc.communicate()
+        assert proc.returncode == 0, f"{name}:\n{log}"
+        lib = ctypes.CDLL(str(out))
+        threefry_kernel._bind(lib)
+        libs[name] = lib
+    return libs
+
+
+def stub_threefry(lib, key: torch.Tensor, n: int, pair: bool):
+    out = torch.full((n, 2) if pair else (n,), -7, dtype=torch.int32)
+    err = lib.threefry(ctypes.c_void_p(key.data_ptr()),
+                       ctypes.c_void_p(out.data_ptr()), n, int(pair), 0,
+                       None)
+    assert err == 0, f"threefry: error {err}"
+    return out
+
+
+@pytest.mark.parametrize("pair", [False, True], ids=["draws", "pairs"])
+@pytest.mark.parametrize("n", [1, 2, 31, 256, 4097])
+def test_stub_built_threefry_equals_plain(threefry_libs, n, pair):
+    """Counters 0 .. n - 1 under keys of seeds 0, 1 and 2^31 + 5 and a
+    key from a chain of splits: every word equal to the plain version's
+    (4097 counters: 17 blocks of 256 threads)."""
+    keys = [jr.prng_key(s, "cpu") for s in (0, 1, 2**31 + 5)]
+    keys.append(jr.split(jr.split(keys[2], 3)[2], 5)[4])
+    for key in keys:
+        want = jr.plain_block(key, n, pair)
+        got = stub_threefry(threefry_libs["kernel"], key, n, pair)
+        assert torch.equal(got, want), (
+            f"n={n}, key {key.tolist()}: {int((got != want).sum())} words "
+            "differ")
+
+
+def test_stub_threefry_grid_and_mutant(threefry_libs):
+    """The grid: one block for a handful of counters, a block per 256,
+    capped at 4096 blocks (a thread then takes several counters). The
+    mutant's draws differ from the plain version's."""
+    lib = threefry_libs["kernel"]
+    assert [lib.threefry_grid(n) for n in (0, 1, 256, 257, 4097,
+                                           1 << 24)] == [1, 1, 1, 2, 17,
+                                                         4096]
+    key = jr.prng_key(3, "cpu")
+    assert not torch.equal(stub_threefry(threefry_libs["mutant"], key, 64,
+                                         False),
+                           jr.plain_block(key, 64))

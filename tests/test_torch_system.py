@@ -35,7 +35,8 @@ from tests.torch_parity import BENCH_DEEP, assert_states_equal, cfg_pair
 LENGTH, CHUNK = 32, 16
 NO_LAUNCHES = {"pre": 0, "flags": 0, "replay": 0, "round": 0,
                "sync_burst": 0, "sync_round": 0, "sync_multi_round": 0,
-               "sync_window": 0, "sync_replay": 0, "ring": 0}
+               "sync_window": 0, "sync_replay": 0, "ring": 0,
+               "threefry": 0}
 
 
 @functools.lru_cache(maxsize=None)
@@ -269,7 +270,8 @@ def test_bench_async_engine_on_cpu(capsys, extra, transport):
     routed runs end after the same cycles (the CPU runs the ring's plain
     version: no launch)."""
     doc = _bench_doc(capsys, "--engine", "async", "--nodes", "32", *extra)
-    assert doc["metric"] == "instrs_per_sec (async, procedural_uniform)"
+    assert doc["metric"] == "instrs_per_sec (async, uniform)"
+    assert doc["workload"] == "uniform" and doc["procedural"] is False
     assert doc["instrs_retired"] == 32 * 8 and doc["msgs_dropped"] == 0
     assert doc["transport"] == transport and doc["cycles"] % 4 == 0
     assert doc["launches"] == NO_LAUNCHES

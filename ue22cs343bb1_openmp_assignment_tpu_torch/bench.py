@@ -2,18 +2,30 @@
 
     python -m ue22cs343bb1_openmp_assignment_tpu_torch.bench
         [--engine deep|sync] [--nodes N] [--trace-len L] [--chunk K]
-        [--reps R] [--txn-width K] [--drain-depth H]
-        [--fold-impl kernel|plain] [--fused-round auto|on|off]
-        [--window-kernels auto|on|off] [--profile ROUNDS]
-        [--device cuda|cpu]
+        [--reps R] [--workload NAME] [--local-frac F] [--replicas R]
+        [--txn-width K] [--drain-depth H] [--fold-impl kernel|plain]
+        [--fused-round auto|on|off] [--window-kernels auto|on|off]
+        [--profile ROUNDS] [--device cuda|cpu]
     python -m ue22cs343bb1_openmp_assignment_tpu_torch.bench --engine async
-        [--queue-capacity Q] [--shards D] [--transport rdma|all_to_all]
-        [--profile CYCLES]
+        [--workload NAME] [--queue-capacity Q] [--shards D]
+        [--transport rdma|all_to_all] [--profile CYCLES]
 
 Runs a transactional engine at the JAX ``bench.py``'s defaults (4096
-nodes, 4096 procedural-uniform instructions per node, locality 0.8,
-chunk 64) to quiescence: one discarded warm-up, then the median of
+nodes, 4096 uniform instructions per node, locality ``--local-frac``
+0.8, chunk 64) to quiescence: one discarded warm-up, then the median of
 ``--reps`` runs, each clock stop after ``torch.cuda.synchronize()``.
+The machine is built before the clock starts.
+
+As in the JAX bench, the sync-like engines generate the ``uniform``
+workload procedurally inside the round (``cfg.procedural``, O(1) trace
+storage) when it is the workload and ``--replicas`` is 1; any other
+workload, or an ensemble, runs as stored traces drawn from the threefry
+twin of jax.random (``models.workloads``), whose stored-trace rounds are
+the plain PyTorch rounds on the card, as in JAX. ``--replicas R``
+(``--engine sync`` only) batches R machines into one ensemble, replica r
+the workload of seed r under arbitration seed r
+(``sync_engine.make_ensemble``, ``run_ensemble_to_quiescence``);
+throughput is summed over the replicas.
 
 ``--engine deep`` (the default) is the deep-window engine (drain_depth
 13, txn_width 3, deep_slots 3, one owner-value slot, slack 4, one wave,
@@ -25,28 +37,28 @@ fused round on a card where ``supported(cfg)`` holds, as the JAX
 
 ``--engine sync`` is the sync window engine: txn_width 3 and drain_depth
 4 by default, drain_depth 16 at ``--txn-width 1``. ``--window-kernels``
-sets ``cfg.pallas_burst``, which routes the whole round through one
-kernel: ``ops/sync_multi_round_kernel`` at txn_width >= 2 (the window
-kernels of ``ops/sync_window_kernel`` where it does not take the config:
-more than 32 lines a node), ``ops/sync_round_kernel`` at txn_width 1;
-``auto`` turns it on for a card, ``off`` measures the plain rounds.
+sets ``cfg.pallas_burst``, which routes the whole procedural round
+through one kernel: ``ops/sync_multi_round_kernel`` at txn_width >= 2
+(the window kernels of ``ops/sync_window_kernel`` where it does not
+take the config: more than 32 lines a node), ``ops/sync_round_kernel``
+at txn_width 1; ``auto`` turns it on for a card, ``off`` measures the
+plain rounds.
 
 ``--engine async`` is the message-level engine (``ops.step``) at the JAX
 ``bench.py``'s async defaults: scatter INV (``SystemConfig.scale``),
-queue capacity 64, locality 0.8, chunk 64, run to quiescence
-(``run_chunked_to_quiescence``). Its stream is ``procedural_uniform``:
-the JAX async default ``uniform`` draws from jax.random, whose twin the
-port does not have yet, so the metric names the workload. ``--shards D``
-routes phase-3 delivery over D shards of the node axis
+queue capacity 64, the ``uniform`` workload at locality 0.8 as stored
+traces, chunk 64, run to quiescence (``run_chunked_to_quiescence``).
+``--shards D`` routes phase-3 delivery over D shards of the node axis
 (``parallel.rdma_comm.make_routed_deliver``): ``--transport rdma`` (the
 ring kernel, ``parallel/ring_kernel``) or ``all_to_all`` (the plain lane
 exchange); one shard delivers unrouted.
 
 The JSON line carries instrs/sec, rounds (cycles for the async engine),
-ms/round (ms/cycle), the card's name and power limit, which path ran and
-the kernels' launch counts of one run. ``--profile R`` adds a
-torch.profiler window of R rounds or cycles: device-busy share, device
-launches and device time by kernel.
+ms/round (ms/cycle), the card's name and power limit, the workload and
+whether its stream was procedural, which path ran and the kernels'
+launch counts of one run. ``--profile R`` adds a torch.profiler window
+of R rounds or cycles: device-busy share, device launches and device
+time by kernel.
 """
 
 from __future__ import annotations
@@ -62,6 +74,10 @@ import time
 import torch
 
 from ue22cs343bb1_openmp_assignment_tpu_torch.config import SystemConfig
+from ue22cs343bb1_openmp_assignment_tpu_torch.models.transactional import (
+    TransactionalSystem)
+from ue22cs343bb1_openmp_assignment_tpu_torch.models.workloads import (
+    GENERATORS)
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
     deep_fold_kernel as dfk)
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
@@ -75,6 +91,7 @@ from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
     sync_round_kernel as srk)
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
     sync_window_kernel as swk)
+from ue22cs343bb1_openmp_assignment_tpu_torch.ops import threefry_kernel
 from ue22cs343bb1_openmp_assignment_tpu_torch.parallel import ring_kernel
 
 #: the port's kernels by the name the profiler reports them under
@@ -84,7 +101,8 @@ KERNEL_NAMES = {"fold": "deep_fold_kernel", "round": "deep_round_kernel",
                 "sync_multi_round": "sync_multi_round_kernel",
                 "sync_window": "sync_window_kernel",
                 "sync_replay": "sync_replay_kernel",
-                "ring": "ring_exchange_kernel"}
+                "ring": "ring_exchange_kernel",
+                "threefry": "threefry_kernel"}
 
 
 def deep_config(nodes: int) -> SystemConfig:
@@ -114,7 +132,8 @@ def sync_config(nodes: int, txn_width: int = 3, drain_depth=None,
 _COUNTED = {"round": drk.fused_round, "sync_burst": sbk.burst,
             "sync_round": srk.fused_round,
             "sync_multi_round": smk.fused_round, "sync_window": swk.window,
-            "sync_replay": swk.replay, "ring": ring_kernel.exchange}
+            "sync_replay": swk.replay, "ring": ring_kernel.exchange,
+            "threefry": threefry_kernel.block}
 
 
 def reset_launch_counts() -> None:
@@ -174,17 +193,19 @@ def device_events(fn) -> tuple:
              if e.device_type == DeviceType.CUDA], wall)
 
 
-#: the async engine's stream: the JAX bench's ``uniform`` needs the
-#: jax.random twin the port does not have yet
-ASYNC_WORKLOAD = "procedural_uniform"
-
-
 def async_config(nodes: int, trace_len: int,
                  queue_capacity: int = 64) -> SystemConfig:
     """bench.py's async-engine config at ``nodes``: scatter INV, the
-    queue capacity, locality 0.8, ``trace_len`` instructions a node."""
+    queue capacity, locality 0.8 (of the ``procedural_uniform``
+    workload), ``trace_len`` instructions a node."""
     return SystemConfig.scale(num_nodes=nodes, queue_capacity=queue_capacity,
                               max_instrs=trace_len, proc_local_permille=800)
+
+
+def gen_kwargs(workload: str, local_frac: float) -> dict:
+    """The generator's keyword arguments the JAX bench passes: the
+    locality of the ``uniform`` workload."""
+    return {"local_frac": local_frac} if workload == "uniform" else {}
 
 
 def profile_rounds(cfg, st, rounds: int, fold_impl: str) -> dict:
@@ -235,6 +256,10 @@ def main(argv=None) -> int:
     ap.add_argument("--trace-len", type=int, default=4096)
     ap.add_argument("--chunk", type=int, default=64)
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--workload", choices=sorted(GENERATORS),
+                    default="uniform")
+    ap.add_argument("--local-frac", type=float, default=0.8)
+    ap.add_argument("--replicas", type=int, default=1)
     ap.add_argument("--fold-impl", choices=["kernel", "plain"],
                     default="kernel")
     ap.add_argument("--fused-round", choices=["auto", "on", "off"],
@@ -251,6 +276,12 @@ def main(argv=None) -> int:
                     default="rdma")
     args = ap.parse_args(argv)
     dev = torch.device(args.device)
+    if args.replicas < 1:
+        print("error: --replicas must be at least 1", file=sys.stderr)
+        return 2
+    if args.engine != "sync" and args.replicas > 1:
+        print("error: --replicas needs --engine sync", file=sys.stderr)
+        return 2
     if args.engine == "async":
         return async_main(args, dev)
     if args.shards != 1:
@@ -268,18 +299,44 @@ def main(argv=None) -> int:
             return 2
         cfg = with_fused_round(deep_config(args.nodes), args.fused_round,
                                dev)
+    procedural = args.workload == "uniform" and args.replicas == 1
+    if procedural:
+        cfg = dataclasses.replace(
+            cfg, proc_local_permille=int(args.local_frac * 1000))
+    else:
+        print("note: the procedural stream needs the uniform workload and "
+              "--replicas 1; measuring stored traces instead",
+              file=sys.stderr)
+        cfg = dataclasses.replace(cfg, procedural=None,
+                                  max_instrs=args.trace_len)
+    ensemble = args.replicas > 1
+
+    def fresh():
+        if procedural:
+            return se.procedural_state(cfg, args.trace_len, device=dev)
+        reps = [TransactionalSystem.from_workload(
+                    cfg, args.workload, args.trace_len, workload_seed=r,
+                    seed=r, device=dev,
+                    **gen_kwargs(args.workload, args.local_frac)).state
+                for r in range(args.replicas)]
+        return se.make_ensemble(reps) if ensemble else reps[0]
+
+    # stay inside the claim-key round budget at large N (8191 rounds at
+    # 65536 nodes), as the JAX bench does
+    max_rounds = min(100_000, se.claim_max_rounds(cfg) - 1)
 
     def one_run():
-        st = se.procedural_state(cfg, args.trace_len, device=dev)
+        st = fresh()
         _sync(dev)
         reset_launch_counts()
         t0 = time.perf_counter()
-        # stay inside the claim-key round budget at large N (8191
-        # rounds at 65536 nodes), as the JAX bench does
-        st = se.run_sync_to_quiescence(
-            cfg, st, args.chunk,
-            max_rounds=min(100_000, se.claim_max_rounds(cfg) - 1),
-            fold_impl=args.fold_impl)
+        if ensemble:
+            st = se.run_ensemble_to_quiescence(cfg, st, args.chunk,
+                                               max_rounds, args.fold_impl)
+        else:
+            st = se.run_sync_to_quiescence(cfg, st, args.chunk,
+                                           max_rounds=max_rounds,
+                                           fold_impl=args.fold_impl)
         _sync(dev)
         return time.perf_counter() - t0, st, launch_counts()
 
@@ -290,24 +347,32 @@ def main(argv=None) -> int:
     if not bool(st.quiescent()):
         print("error: the run did not reach quiescence", file=sys.stderr)
         return 1
-    rounds = int(st.metrics.rounds)
-    retired = int(st.metrics.instrs_retired)
+    rounds = int(st.metrics.rounds.reshape(-1)[0])
+    retired = int(st.metrics.instrs_retired.sum())
     doc = {"metric": "instrs_per_sec", "instrs_per_sec": retired / wall,
            "rounds": rounds, "ms_per_round": wall * 1e3 / rounds,
            "wall_s": wall, "reps_s": [r[0] for r in runs],
            "instrs_retired": retired, "card": card_name_and_limit(dev),
-           "engine": args.engine, "fold_impl": args.fold_impl,
-           "fused_round": cfg.fused_round,
+           "engine": args.engine, "workload": args.workload,
+           "procedural": procedural, "replicas": args.replicas,
+           "fold_impl": args.fold_impl, "fused_round": cfg.fused_round,
            "window_kernels": cfg.pallas_burst, "launches": launches,
            "config": {"nodes": args.nodes, "trace_len": args.trace_len,
                       "chunk": args.chunk, "deep_slots": cfg.deep_slots,
                       "txn_width": cfg.txn_width,
                       "drain_depth": cfg.drain_depth}}
     if args.profile:
-        st = se.run_rounds(cfg, se.procedural_state(
-            cfg, args.trace_len, device=dev), 16, args.fold_impl)
-        doc["profile"] = profile_rounds(cfg, st, args.profile,
-                                        args.fold_impl)
+        if ensemble:
+            st = fresh()
+            for _ in range(16):
+                st = se.ensemble_round_step(cfg, st, args.fold_impl)
+            doc["profile"] = profile_steps(
+                lambda s: se.ensemble_round_step(cfg, s, args.fold_impl),
+                st, args.profile)
+        else:
+            st = se.run_rounds(cfg, fresh(), 16, args.fold_impl)
+            doc["profile"] = profile_rounds(cfg, st, args.profile,
+                                            args.fold_impl)
     print(json.dumps(doc))
     return 0
 
@@ -325,15 +390,17 @@ def async_main(args, dev: torch.device) -> int:
         return 2
     cfg = dataclasses.replace(
         async_config(args.nodes, args.trace_len, args.queue_capacity),
-        transport=args.transport)
+        transport=args.transport,
+        proc_local_permille=int(args.local_frac * 1000))
     deliver_fn = sharded_step.transport_deliver(
         cfg, mesh.make_layout(args.nodes, args.shards, device=dev))
     transport = getattr(deliver_fn, "transport", "none")
     max_cycles = 200 * args.trace_len
 
     def fresh():
-        return CoherenceSystem.from_workload(cfg, ASYNC_WORKLOAD,
-                                             device=dev).state
+        return CoherenceSystem.from_workload(
+            cfg, args.workload, device=dev,
+            **gen_kwargs(args.workload, args.local_frac)).state
 
     def one_run():
         st = fresh()
@@ -354,19 +421,21 @@ def async_main(args, dev: torch.device) -> int:
         return 1
     cycles = int(st.metrics.cycles)
     retired = int(st.metrics.instrs_retired)
-    doc = {"metric": f"instrs_per_sec (async, {ASYNC_WORKLOAD})",
+    doc = {"metric": f"instrs_per_sec (async, {args.workload})",
            "instrs_per_sec": retired / wall, "cycles": cycles,
            "ms_per_cycle": wall * 1e3 / cycles, "wall_s": wall,
            "reps_s": [r[0] for r in runs], "instrs_retired": retired,
            "msgs_dropped": int(st.metrics.msgs_dropped),
            "card": card_name_and_limit(dev), "engine": "async",
-           "workload": ASYNC_WORKLOAD, "shards": args.shards,
-           "transport": transport, "launches": launches,
+           "workload": args.workload, "procedural": False,
+           "shards": args.shards, "transport": transport,
+           "launches": launches,
            "config": {"nodes": args.nodes, "trace_len": args.trace_len,
                       "chunk": args.chunk,
                       "queue_capacity": cfg.queue_capacity,
                       "inv_mode": cfg.inv_mode,
-                      "proc_local_permille": cfg.proc_local_permille}}
+                      "proc_local_permille": cfg.proc_local_permille,
+                      "local_frac": args.local_frac}}
     if args.profile:
         st = step.run_cycles(cfg, fresh(), 64, deliver_fn=deliver_fn)
         doc["profile"] = profile_steps(

@@ -8,8 +8,9 @@ knobs, metrics, invariant checks and the stall watchdog. State lives on
 ``device`` (None means the card; the CPU only when asked for).
 
 The traced runs hand back the event record as numpy arrays on the host
-(``utils.eventlog`` renders it). Checkpoints (``save``/``load``) are a
-later slice.
+(``utils.eventlog`` renders it). Checkpoints (``save``/``load``) are the
+JAX package's format (``utils.checkpoint``): either package loads what
+the other wrote.
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ from ue22cs343bb1_openmp_assignment_tpu_torch.models import workloads
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import step
 from ue22cs343bb1_openmp_assignment_tpu_torch.state import (
     SIM_METRIC_FIELDS, SimState, init_state)
-from ue22cs343bb1_openmp_assignment_tpu_torch.utils import golden, trace
+from ue22cs343bb1_openmp_assignment_tpu_torch.utils import (
+    checkpoint, golden, trace)
 
 
 def dump_view(state: SimState):
@@ -56,12 +58,12 @@ class CoherenceSystem:
         return cls(cfg, init_state(cfg, traces, device=device, **init_kw))
 
     @classmethod
-    def from_workload(cls, cfg: SystemConfig,
-                      name: str = "procedural_uniform",
+    def from_workload(cls, cfg: SystemConfig, name: str = "uniform",
                       trace_len: Optional[int] = None, seed: int = 0,
                       init_kw: Optional[dict] = None, device=None,
                       **gen_kw) -> "CoherenceSystem":
-        """A synthetic workload (models.workloads); init_kw goes to
+        """A synthetic workload (models.workloads) drawn from
+        ``jax.random.PRNGKey(seed)``'s stream; init_kw goes to
         state.init_state (issue_delay / issue_period / arb_rank)."""
         trace_len = trace_len or cfg.max_instrs
         if trace_len != cfg.max_instrs:
@@ -187,3 +189,19 @@ class CoherenceSystem:
             raise AssertionError(
                 f"protocol invariants violated during run: {bad}")
         return dataclasses.replace(self, state=state)
+
+    # -- persistence -------------------------------------------------------
+    def save(self, path: str, meta: Optional[dict] = None) -> None:
+        """Checkpoint the whole machine at the current cycle boundary."""
+        checkpoint.save_checkpoint(path, self.cfg, self.state, meta)
+
+    @classmethod
+    def load(cls, path: str, device=None) -> "CoherenceSystem":
+        """Resume from a checkpoint (of either package) on ``device``;
+        bit-exact continuation."""
+        cfg, state, meta = checkpoint.load_checkpoint(path, device=device)
+        if meta.get("kind", "sim") != "sim":
+            raise ValueError(
+                f"{path} holds a SyncState (transactional engine) "
+                "checkpoint; load it with TransactionalSystem.load")
+        return cls(cfg, state)

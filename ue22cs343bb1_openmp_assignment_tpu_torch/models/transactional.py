@@ -9,8 +9,9 @@ multi-transaction). State lives on ``device`` (None means the card; the
 CPU only when asked for).
 
 ``ensemble`` stacks this machine under several arbitration seeds
-(``ops.sync_engine.make_ensemble``). Synthetic stored-trace workloads
-(``from_workload``) and checkpoints are later slices of the port.
+(``ops.sync_engine.make_ensemble``). ``from_workload`` runs a synthetic
+workload as stored traces; checkpoints (``save``/``load``) are the JAX
+package's format (``utils.checkpoint``).
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ from typing import List, Optional, Sequence
 
 from ue22cs343bb1_openmp_assignment_tpu_torch.config import SystemConfig
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import sync_engine as se
-from ue22cs343bb1_openmp_assignment_tpu_torch.utils import golden, trace
+from ue22cs343bb1_openmp_assignment_tpu_torch.utils import (
+    checkpoint, golden, trace)
 
 
 @dataclasses.dataclass
@@ -46,6 +48,21 @@ class TransactionalSystem:
                     seed: int = 0, device=None) -> "TransactionalSystem":
         return cls(cfg, se.from_traces(cfg, list(traces), seed=seed,
                                        device=device))
+
+    @classmethod
+    def from_workload(cls, cfg: SystemConfig, name: str = "uniform",
+                      trace_len: Optional[int] = None,
+                      workload_seed: int = 0, seed: int = 0, device=None,
+                      **gen_kw) -> "TransactionalSystem":
+        """A synthetic workload (models.workloads, drawn from
+        ``workload_seed``) as stored traces, under arbitration seed
+        ``seed``."""
+        from ue22cs343bb1_openmp_assignment_tpu_torch.models.system import (
+            CoherenceSystem)
+        base = CoherenceSystem.from_workload(
+            cfg, name, trace_len=trace_len, seed=workload_seed,
+            device=device, **gen_kw)
+        return cls(base.cfg, se.from_sim_state(base.cfg, base.state, seed))
 
     @classmethod
     def procedural(cls, cfg: SystemConfig, length: int, seed: int = 0,
@@ -113,3 +130,17 @@ class TransactionalSystem:
     def write_dumps(self, out_dir: str) -> List[str]:
         return golden.write_dumps(
             self.cfg, se.to_dump_view(self.cfg, self.state), out_dir)
+
+    # -- persistence -------------------------------------------------------
+    def save(self, path: str, meta: Optional[dict] = None) -> None:
+        checkpoint.save_checkpoint(path, self.cfg, self.state, meta)
+
+    @classmethod
+    def load(cls, path: str, device=None) -> "TransactionalSystem":
+        """Resume from a checkpoint (of either package) on ``device``."""
+        cfg, state, meta = checkpoint.load_checkpoint(path, device=device)
+        if meta.get("kind") != "sync":
+            raise ValueError(
+                f"{path} holds an async-engine (SimState) checkpoint; "
+                "load it with CoherenceSystem.load")
+        return cls(cfg, state)

@@ -25,9 +25,9 @@ import torch
 
 from ue22cs343bb1_openmp_assignment_tpu_torch.config import SystemConfig
 from ue22cs343bb1_openmp_assignment_tpu_torch.state import (
-    MB_ADDR, MB_BV0, MB_DIRSTATE, MB_SECOND, MB_SENDER, MB_TYPE, MB_VALUE,
-    check_supported)
+    MB_ADDR, MB_BV0, MB_DIRSTATE, MB_SECOND, MB_SENDER, MB_TYPE, MB_VALUE)
 from ue22cs343bb1_openmp_assignment_tpu_torch.types import Msg
+from ue22cs343bb1_openmp_assignment_tpu_torch.utils import random as jr
 
 INT32_MAX = 2**31 - 1
 I32 = torch.int32
@@ -154,8 +154,13 @@ def deliver(cfg: SystemConfig, state, cand: Candidates, arb_rank,
             new_head, new_count) -> tuple:
     """Scatter candidates into the rings with deterministic arbitration
     (lower arb_rank enqueues first at every receiver). Returns (state
-    updates dict, dropped count, injected count) as the JAX deliver."""
-    check_supported(cfg)
+    updates dict, dropped count, injected count) as the JAX deliver.
+
+    When cfg.drop_prob > 0, each otherwise-accepted message is dropped
+    with that probability (fault injection): ``state.fault_key`` splits
+    into a draw key and the next key, a Bernoulli draw over the sorted
+    candidates drops the hits, and the survivors are re-ranked within
+    their receiver's run so the ring writes stay dense."""
     N, S, Q = cfg.num_nodes, cfg.out_slots, cfg.queue_capacity
     F = N * S
     c_type = cand.type.reshape(F)
@@ -168,20 +173,29 @@ def deliver(cfg: SystemConfig, state, cand: Candidates, arb_rank,
                           N * (F + 1) + F < 2**31)
     r_s = recv[order]
     v_s = valid[order]
-    rank, _ = segment_ranks(r_s, v_s)
+    rank, seg_start = segment_ranks(r_s, v_s)
     # capacity: free slots after this cycle's dequeue
     safe_r = torch.where(v_s, r_s, 0).to(torch.int64)
     accept = v_s & (rank < (Q - new_count)[safe_r])
     dropped = (v_s & ~accept).sum(dtype=I32)
+    fault_key = state.fault_key
+    injected = torch.zeros((), dtype=I32, device=dropped.device)
+    if cfg.drop_prob > 0.0:
+        k_draw, fault_key = jr.split(fault_key)
+        hit = accept & jr.bernoulli(k_draw, cfg.drop_prob, accept.shape)
+        injected = hit.sum(dtype=I32)
+        accept = accept ^ hit
+        # seg_start >= 0 everywhere (a run starts at row 0)
+        excl = torch.cumsum(accept, 0, dtype=I32) - accept.to(I32)
+        rank = excl - excl[seg_start]
     pos = (new_head[safe_r] + new_count[safe_r] + rank) % Q
     pack = pack_candidates(cand).reshape(-1, F)[:, order]
     mb_pack, mb_count = ring_scatter(
         state.mb_pack, new_count, torch.where(accept, r_s, N),
         torch.where(accept, pos, 0), accept, pack)
     updates = dict(mb_pack=mb_pack, mb_head=new_head, mb_count=mb_count,
-                   fault_key=state.fault_key)
-    return updates, dropped, torch.zeros((), dtype=I32,
-                                         device=dropped.device)
+                   fault_key=fault_key)
+    return updates, dropped, injected
 
 
 def push_message(cfg: SystemConfig, state, receiver: int, *, type,

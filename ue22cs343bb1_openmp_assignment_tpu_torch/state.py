@@ -18,6 +18,7 @@ import torch
 
 from ue22cs343bb1_openmp_assignment_tpu_torch.config import SystemConfig
 from ue22cs343bb1_openmp_assignment_tpu_torch.types import Op
+from ue22cs343bb1_openmp_assignment_tpu_torch.utils.random import prng_key
 
 
 def cold_memory(cfg: SystemConfig, device) -> torch.Tensor:
@@ -93,9 +94,6 @@ SIM_FIELDS = ("cache_addr", "cache_val", "cache_state", "memory",
               "order_rank", "fault_key", "cycle")
 #: leaves the JAX package keeps as uint32 (here int32 bit patterns)
 UINT32_FIELDS = ("dir_bitvec", "fault_key")
-#: where a later slice waits for the threefry twin of jax.random
-THREEFRY = ("the threefry twin of jax.random (ROADMAP.md Queue 1 item 8) "
-            "is not ported")
 
 
 @dataclasses.dataclass
@@ -186,23 +184,6 @@ class SimState:
         return dataclasses.replace(self, **kw)
 
 
-def check_supported(cfg: SystemConfig) -> None:
-    """Raise for what the port's message-level engine does not run yet:
-    fault injection draws from jax.random's threefry stream."""
-    if cfg.drop_prob > 0.0:
-        raise NotImplementedError(
-            f"cfg.drop_prob > 0 injects faults from jax.random draws; "
-            f"{THREEFRY}")
-
-
-def fault_key_from_seed(seed: int, device) -> torch.Tensor:
-    """The two words of ``jax.random.PRNGKey(seed)`` (threefry, 32-bit
-    seeds: [0, seed mod 2^32]) as int32 bit patterns."""
-    lo = int(seed) & 0xFFFFFFFF
-    return torch.tensor([0, lo - (1 << 32) if lo >> 31 else lo],
-                        dtype=torch.int32, device=device)
-
-
 def init_state(cfg: SystemConfig, traces=None, issue_delay=None,
                issue_period=None, instr_arrays=None, arb_rank=None,
                fault_seed: int = 0, order_rank=None,
@@ -212,7 +193,6 @@ def init_state(cfg: SystemConfig, traces=None, issue_delay=None,
     from ue22cs343bb1_openmp_assignment_tpu_torch import device as _device
     from ue22cs343bb1_openmp_assignment_tpu_torch.types import (
         CacheState, DirState, Msg)
-    check_supported(cfg)
     dev = _device.resolve(device)
     N, C, M = cfg.num_nodes, cfg.cache_size, cfg.mem_size
     Q, W, Wm = cfg.queue_capacity, cfg.bitvec_words, cfg.msg_bitvec_words
@@ -252,7 +232,7 @@ def init_state(cfg: SystemConfig, traces=None, issue_delay=None,
         arb_rank=knob(arb_rank, torch.arange(N, dtype=i32, device=dev)),
         order_rank=knob(order_rank,
                         torch.zeros((N, 0), dtype=i32, device=dev)),
-        fault_key=fault_key_from_seed(fault_seed, dev),
+        fault_key=prng_key(fault_seed, dev),
         cycle=torch.zeros((), dtype=i32, device=dev),
         metrics=Metrics.zeros(dev),
     )
