@@ -116,7 +116,23 @@ Phases (each prints its own line; any failure exits non-zero):
    (drop_prob 0.01) for 512 cycles: ms/cycle, threefry launches (two a
    cycle with faults, none without), a torch.profiler window of device
    launches a cycle; and, with two or more cards, one exchange across
-   real cards against its plain version.
+   real cards against its plain version;
+10. the port's CLI (``cli.main`` in this process, no ``--cpu``): the
+   bench's cells at full width (sync@4096 x 4096 at txn_width 3 /
+   drain_depth 4 and txn_width 1 / drain_depth 16, deep@4096 x 4096 at
+   deep_slots 3, async@4096 x 512 ``uniform`` at queue capacity 64),
+   each with --check --metrics: the check's exit and line equal to the
+   library's check of the same config run through the library in this
+   process (the async engine's engine tier trips on that racy traffic,
+   exit 3 in the JAX package too; that run is made again without
+   --check), every document valid, equal to the library run's, every
+   instruction retired, sync_multi_round / sync_round / round launched
+   once a round and threefry on the async run; the same runs at 256
+   nodes x 128 with --dump on the card and with --cpu, dumps, stdout and
+   stderr equal, and a deep run with --trace-log there (logs equal, the
+   fold modes launched on the card); tests/fixtures/mini on the async,
+   sync and native engines, card against --cpu; each run's wall seconds
+   beside the card's name and power limit.
 
 The line before the last is the card's name and power limit as
 nvidia-smi reports them; before it, one JSON object with a row per
@@ -2054,6 +2070,306 @@ def phase_async_uniform(rows: dict) -> None:
             f"cycle")
 
 
+# -- the port's CLI ---------------------------------------------------------
+
+#: the CLI's full-width runs (the bench's cells, the async trace cut to
+#: 512 instructions a node as in ASYNC) and the kernel each one launches:
+#: once a round, or for ``threefry`` at least once; each takes --nodes
+#: and --trace-len from CLI
+CLI_RUNS = {
+    "sync K=3": (["--engine", "sync", "--procedural", "--txn-width", "3",
+                  "--drain-depth", "4"], "sync_multi_round"),
+    "sync K=1": (["--engine", "sync", "--procedural", "--txn-width", "1",
+                  "--drain-depth", "16"], "sync_round"),
+    "deep": (["--engine", "sync", "--procedural", "--deep-window",
+              "--deep-slots", "3"], "round"),
+    "async uniform": (["--workload", "uniform", "--queue-capacity", "64"],
+                      "threefry"),
+}
+#: full width: 4096 nodes x 4096 instructions (async 512); card against
+#: CPU: 256 nodes x 128 (the CPU's plain deep round takes ~0.3 s)
+CLI = dict(nodes=4096, trace_len=4096, async_trace_len=512, small_nodes=256,
+           small_trace_len=128)
+
+
+def cli_argv(name: str, nodes: int, trace_len: int, *extra) -> list:
+    argv, _ = CLI_RUNS[name]
+    if name == "async uniform":
+        trace_len = min(trace_len, CLI["async_trace_len"])
+    return argv + ["--nodes", str(nodes), "--trace-len", str(trace_len),
+                   *extra]
+
+
+def cli_configs() -> list:
+    """The configs the CLI's runs below build kernels for (kernel routes
+    on the card), as (library, config) build jobs."""
+    import torch
+    from ue22cs343bb1_openmp_assignment_tpu_torch import cli
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
+        deep_fold_kernel, deep_round_kernel, sync_multi_round_kernel,
+        sync_round_kernel)
+    libs = {"sync K=3": sync_multi_round_kernel.LIBRARY,
+            "sync K=1": sync_round_kernel.LIBRARY,
+            "deep": deep_round_kernel.LIBRARY}
+    jobs = []
+    for name, lib in libs.items():
+        for nodes in (CLI["nodes"], CLI["small_nodes"]):
+            args = cli.build_parser().parse_args(
+                cli_argv(name, nodes, CLI["trace_len"]))
+            cfg = cli.kernel_routes(cli.procedural_config(args),
+                                    torch.device("cuda"))
+            jobs.append((lib, cfg))
+            if name == "deep" and nodes == CLI["small_nodes"]:
+                jobs.append((deep_fold_kernel.LIBRARY, cfg))
+    return jobs
+
+
+def run_cli(argv: list) -> tuple:
+    """``cli.main(argv)`` in this process, its output captured: (exit
+    code, stdout, stderr lines, wall seconds, launch counts), the counts
+    set to 0 just before and read just after."""
+    import contextlib
+    import io
+    import torch
+    from ue22cs343bb1_openmp_assignment_tpu_torch import bench, cli
+    out, err = io.StringIO(), io.StringIO()
+    torch.cuda.synchronize()
+    bench.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (rc, out.getvalue(), err.getvalue().splitlines(), wall,
+            bench.launch_counts())
+
+
+def _cli_doc(label: str, argv: list, rc: int, err: list) -> dict:
+    """The metrics document on the last stderr line of a run that must
+    have exited 0, validated by the port's ``obs.schema``."""
+    from ue22cs343bb1_openmp_assignment_tpu_torch.obs import schema
+    if rc != 0 or not err:
+        raise SmokeFailure(f"cli {label} {' '.join(argv)}: exit {rc}, "
+                           f"stderr {err[-3:]}")
+    return schema.validate(json.loads(err[-1]))
+
+
+def _library_run(argv: list) -> tuple:
+    """``argv``'s config run through the library on the card with the
+    CLI's runner and chunk: (metrics document, wall seconds of the run,
+    the machine built before the clock starts, and the (exit code, line)
+    that ``--check`` must give: the library's own check of the final
+    state)."""
+    import torch
+    from ue22cs343bb1_openmp_assignment_tpu_torch import cli
+    from ue22cs343bb1_openmp_assignment_tpu_torch.config import SystemConfig
+    from ue22cs343bb1_openmp_assignment_tpu_torch.models.system import (
+        CoherenceSystem)
+    from ue22cs343bb1_openmp_assignment_tpu_torch.models.transactional \
+        import TransactionalSystem
+    from ue22cs343bb1_openmp_assignment_tpu_torch.obs import schema
+    args = cli.build_parser().parse_args(argv)
+    dev = torch.device("cuda")
+    if args.engine == "sync":
+        cfg = cli.kernel_routes(cli.procedural_config(args), dev)
+        system = TransactionalSystem.procedural(cfg, args.trace_len,
+                                                device=dev)
+        chunk, passed = 16, "invariant check passed (exact directory); " \
+            "report: {}"
+    else:
+        cfg = SystemConfig.scale(num_nodes=args.nodes,
+                                 queue_capacity=args.queue_capacity)
+        system = CoherenceSystem.from_workload(
+            cfg, args.workload, trace_len=args.trace_len, seed=args.seed,
+            device=dev)
+        chunk, passed = 1, "invariant check passed; coherence report: {}"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    system = system.run(args.max_cycles, chunk=chunk)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    try:
+        report = (system.check_invariants() if args.engine == "sync" else
+                  system.check_invariants(strict_coherence=False))
+        check = (0, passed.format(json.dumps(report)))
+    except AssertionError as e:
+        check = (3, f"invariant check FAILED: {e}")
+    if args.engine == "sync":
+        doc = schema.from_sync(system.metrics,
+                               "deep" if cfg.deep_window else "sync")
+    else:
+        doc = schema.from_async(system.metrics)
+    return doc, wall, check
+
+
+def _check_launches(label: str, counts: dict, want: dict) -> None:
+    """``counts`` launched exactly ``want`` (a count, or ">0"), and no
+    other kernel."""
+    for kernel, n in counts.items():
+        need = want.get(kernel, 0)
+        if (n <= 0) if need == ">0" else (n != need):
+            raise SmokeFailure(f"cli {label}: {n} {kernel} launches, want "
+                               f"{need}; all {counts}")
+
+
+def _cli_full_width(card: str) -> None:
+    """Each full-width run with --check --metrics, its check equal to
+    the library's check of the same config's final state. A check that
+    fails (the async engine's own engine tier trips on racy ``uniform``
+    traffic at this size, in the JAX package too) ends the run with exit
+    3 before the document; the run is then made again without --check
+    for it."""
+    for name, (_, kernel) in CLI_RUNS.items():
+        argv = cli_argv(name, CLI["nodes"], CLI["trace_len"], "--check",
+                        "--metrics")
+        lib_doc, lib_wall, (check_rc, check_line) = _library_run(argv)
+        rc, _, err, wall, counts = run_cli(argv)
+        got = (rc, err[-1] if check_rc else err[-2] if len(err) > 1 else "")
+        if got != (check_rc, check_line):
+            raise SmokeFailure(f"cli {name}: --check gave {got}, the "
+                               f"library's check {check_rc, check_line}")
+        walls = [wall]
+        if check_rc:
+            argv = cli_argv(name, CLI["nodes"], CLI["trace_len"],
+                            "--metrics")
+            rc, _, err, wall, counts = run_cli(argv)
+            walls.append(wall)
+        doc = _cli_doc(name, argv, rc, err)
+        length = int(argv[argv.index("--trace-len") + 1])
+        if doc["instrs_retired"] != CLI["nodes"] * length:
+            raise SmokeFailure(f"cli {name}: retired {doc['instrs_retired']}"
+                               f" of {CLI['nodes'] * length}")
+        _check_launches(name, counts, {kernel: ">0" if kernel == "threefry"
+                                       else doc["steps"]})
+        if lib_doc != doc:
+            raise SmokeFailure(f"cli {name}: the metrics document differs "
+                               f"from the library run's: {doc} vs {lib_doc}")
+        say("cli", f"{name} ({' '.join(argv)}): --check exit {check_rc} "
+            f"as the library's check ({check_line[:60]}...); exit 0, "
+            f"{doc['steps']} {doc['step_unit']}, {doc['instrs_retired']} "
+            f"retired, document valid and equal to the library run's; "
+            f"{kernel} launches {counts[kernel]}; CLI wall "
+            f"{' and '.join(f'{w:.3f}' for w in walls)} s against the "
+            f"library's {lib_wall * 1e3 / doc['steps']:.4f} "
+            f"ms/{doc['step_unit'][:-1]} x {doc['steps']} = {lib_wall:.3f} s "
+            f"({card})")
+
+
+def _dumps(path) -> dict:
+    import pathlib
+    return {p.name: p.read_bytes()
+            for p in sorted(pathlib.Path(path).iterdir())}
+
+
+def _card_and_cpu(label: str, argv: list, tmp: str) -> tuple:
+    """``argv`` on the card and with --cpu, each into a directory of its
+    own: equal exit codes, stdout and stderr, every file byte-identical;
+    (exit code, card's files, stderr lines, card wall, card launch
+    counts)."""
+    import os
+    got = {}
+    for where in ("card", "cpu"):
+        out = os.path.join(tmp, label.replace(" ", "_"), where)
+        os.makedirs(out)
+        extra = ["--out-dir", out] + (["--cpu"] if where == "cpu" else [])
+        log = [a.replace("{out}", out) for a in argv]
+        rc, stdout, err, wall, counts = run_cli(log + extra)
+        got[where] = (rc, _dumps(out), stdout, err, wall, counts)
+    (rc, files, out_c, err, wall, counts), (rc_cpu, files_cpu, out_cpu,
+                                            err_cpu, _, _) = (
+        got["card"], got["cpu"])
+    if sorted(files) != sorted(files_cpu) or any(
+            files[k] != files_cpu[k] for k in files):
+        bad = next((k for k in files_cpu if files.get(k) != files_cpu[k]),
+                   None)
+        raise SmokeFailure(f"cli {label}: card and CPU files differ ({bad})")
+    if (rc, out_c, err) != (rc_cpu, out_cpu, err_cpu):
+        raise SmokeFailure(f"cli {label}: card and CPU exit codes, stdout "
+                           f"or stderr differ: {rc} {err[-2:]} vs {rc_cpu} "
+                           f"{err_cpu[-2:]}")
+    return rc, files, err, wall, counts
+
+
+def _cli_card_vs_cpu(tmp: str) -> None:
+    """The full-width runs at 256 nodes, card against --cpu, each with
+    --check --metrics --dump; one whose check fails (exit 3 on both) is
+    made again without --check for its dumps and document."""
+    N, L = CLI["small_nodes"], CLI["small_trace_len"]
+    for name, (_, kernel) in CLI_RUNS.items():
+        argv = cli_argv(name, N, L, "--check", "--metrics", "--dump")
+        rc, files, err, wall, counts = _card_and_cpu(f"{name} {N}", argv,
+                                                     tmp)
+        check = f"--check exit {rc} on both"
+        if rc == 3:
+            argv = cli_argv(name, N, L, "--metrics", "--dump")
+            rc, files, err, wall, counts = _card_and_cpu(
+                f"{name} {N} unchecked", argv, tmp)
+        doc = _cli_doc(f"{name} {N}", argv, rc, err)
+        _check_launches(f"{name} {N}", counts, {
+            kernel: ">0" if kernel == "threefry" else doc["steps"]})
+        say("cli", f"{name} at {N} nodes x {L}: {check}; card and --cpu "
+            f"{len(files)} dumps byte-identical, documents equal "
+            f"({doc['steps']} {doc['step_unit']}), {kernel} launches "
+            f"{counts[kernel]}, card wall {wall:.3f} s")
+    argv = cli_argv("deep", N, L, "--metrics", "--dump", "--trace-log",
+                    "{out}/order.txt")
+    rc, files, err, wall, counts = _card_and_cpu(f"deep trace-log {N}",
+                                                 argv, tmp)
+    _cli_doc("deep trace-log", argv, rc, err)
+    _check_launches("deep trace-log", counts,
+                    {"pre": ">0", "flags": ">0", "replay": ">0"})
+    lines = files["order.txt"].count(b"\n")
+    say("cli", f"deep at {N} nodes x {L} with --trace-log: card and --cpu "
+        f"logs ({lines} lines) and dumps byte-identical, documents equal; "
+        f"fold launches pre {counts['pre']}, flags {counts['flags']}, "
+        f"replay {counts['replay']}, round {counts['round']}; card wall "
+        f"{wall:.3f} s")
+
+
+def _cli_mini(tmp: str) -> None:
+    """tests/fixtures/mini on each engine, card against --cpu. The async
+    engine and the native oracle share the message-level semantics, so
+    their dumps are byte-identical; the transactional engine commits
+    another interleaving of this racy fixture and agrees on core 0."""
+    import pathlib
+    root = str(pathlib.Path(__file__).resolve().parent / "tests" / "fixtures")
+    dumps = {}
+    for engine in ("async", "sync", "native"):
+        argv = ["mini", "--tests-root", root, "--engine", engine,
+                "--metrics"]
+        rc, files, err, wall, counts = _card_and_cpu(f"mini {engine}",
+                                                     argv, tmp)
+        doc = _cli_doc(f"mini {engine}", argv, rc, err)
+        _check_launches(f"mini {engine}", counts, {})
+        dumps[engine] = files
+        say("cli", f"{MINI} --engine {engine}: card and --cpu dumps "
+            f"byte-identical, documents equal ({doc['steps']} "
+            f"{doc['step_unit']}, {doc['instrs_retired']} retired), card "
+            f"wall {wall:.3f} s")
+    if dumps["async"] != dumps["native"] or len(dumps["async"]) != 4:
+        raise SmokeFailure("cli mini: the async and native dumps differ")
+    core0 = {e: d["core_0_output.txt"] for e, d in dumps.items()}
+    if len(set(core0.values())) != 1:
+        raise SmokeFailure("cli mini: core_0_output.txt differs across the "
+                           "engines")
+    say("cli", f"{MINI}: async and native dumps byte-identical, core 0 "
+        "equal on all three engines")
+
+
+def phase_cli(card: str) -> None:
+    """The port's CLI, driven in process through ``cli.main`` on the
+    card: the full-width runs against the library, 256 nodes card
+    against --cpu (the deep run with --trace-log too), and mini on all
+    three engines."""
+    import tempfile
+    t0 = time.perf_counter()
+    say("cli", f"card: {card}")
+    _cli_full_width(card)
+    with tempfile.TemporaryDirectory() as tmp:
+        _cli_card_vs_cpu(tmp)
+        _cli_mini(tmp)
+    say("cli", f"cli phase took {time.perf_counter() - t0:.1f} s")
+
 def phase_multi_card() -> None:
     import torch
     from ue22cs343bb1_openmp_assignment_tpu_torch.parallel import ring_kernel
@@ -2130,7 +2446,8 @@ def main() -> int:
                          sync_cfg(SYNC_BIG, 2))]
             # one ring library serves every (D, shape), one threefry
             # library every key, count and mode: all run-time arguments
-            + [(ring_kernel.LIBRARY, None), (threefry_kernel.LIBRARY, None)])
+            + [(ring_kernel.LIBRARY, None), (threefry_kernel.LIBRARY, None)]
+            + cli_configs())
         random_rows = {}
         phase_random(random_rows)
         rows, st = phase_kernel_vs_plain(cfg)
@@ -2149,6 +2466,7 @@ def main() -> int:
         phase_async_main_path(rows)
         phase_async_uniform(rows)
         phase_multi_card()
+        phase_cli(card)
     except (SmokeFailure, AssertionError, RuntimeError, ValueError) as e:
         print(f"FAIL: {type(e).__name__}: {e}", flush=True)
         return 1

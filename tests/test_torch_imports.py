@@ -53,7 +53,8 @@ def test_scans_cover_the_copied_modules():
     the modules both checks above import and scan."""
     mods = {m for m, _ in _port_modules()}
     for copy in ("utils.search", "utils.eventlog", "utils.golden",
-                 "utils.trace", "config", "types", "codec"):
+                 "utils.trace", "config", "types", "codec", "obs.schema",
+                 "utils.order_replay", "native.bindings"):
         assert f"{PKG}.{copy}" in mods, copy
 
 
