@@ -132,7 +132,25 @@ Phases (each prints its own line; any failure exits non-zero):
    stderr equal, and a deep run with --trace-log there (logs equal, the
    fold modes launched on the card); tests/fixtures/mini on the async,
    sync and native engines, card against --cpu; each run's wall seconds
-   beside the card's name and power limit.
+   beside the card's name and power limit;
+11. the observability captures and verbs (``obs``, slice 11; sizes in
+   OBS), through ``cli.main``: ``stats --timeseries --phases`` of
+   async@4096 x 512 ``uniform`` over its first 512 cycles (telemetry
+   totals equal to the run's metrics, the plain and telemetry runs'
+   walls) and ``profile`` over the same cycles (reads and writes equal
+   to the run's, peak device memory); ``profile --engine sync`` at 4096
+   x 4096 K=3 over 64 rounds (accesses equal to the retired count of
+   the same rounds through the library); ``profile --engine deep`` at
+   its cap of 2048 nodes over 8 rounds (the plain folds: no fold or
+   round kernel launches, threefry its 12; the abort anatomy against
+   the rounds' conflicts and retired counts); every verb (stats on
+   three engines, trace, txns, critical-path, profile on three engines)
+   and ``--check --flight-dir`` (the ``invariant:check`` incident of the
+   tripped engine tier) at 256 nodes x 128, the card against --cpu:
+   exit codes, stdout (``extra.phases`` by its names and counts),
+   stderr and files equal. The --cpu runs and the two 4096 profiles
+   run in child processes beside the card runs of this process; the
+   phase prints its time.
 
 The line before the last is the card's name and power limit as
 nvidia-smi reports them; before it, one JSON object with a row per
@@ -2370,6 +2388,370 @@ def phase_cli(card: str) -> None:
         _cli_mini(tmp)
     say("cli", f"cli phase took {time.perf_counter() - t0:.1f} s")
 
+# -- the observability captures and verbs -----------------------------------
+
+#: the obs phase's sizes: the full-width async machine (4096 nodes x 512,
+#: the cli phase's cell) captured for its first ``cycles`` cycles; the
+#: sync profile at 4096 x 4096 for 64 rounds; the deep profile at its
+#: cap (2048 nodes: 512 MiB of counters) for 8 rounds; every verb at
+#: 256 nodes x 128 on the card and with --cpu (the async captures for
+#: their first ``small_cycles`` cycles, the flight run to its end)
+OBS = dict(nodes=4096, trace_len=512, cycles=512, sync_rounds=64,
+           deep_nodes=2048, deep_trace_len=256, deep_rounds=8,
+           small_nodes=256, small_trace_len=128, small_cycles=192,
+           cpu_children=3, cpu_threads=2)
+
+
+def obs_small_runs() -> list:
+    """(label, argv) of every verb at 256 nodes x 128, "{out}" the run's
+    own directory; the flight run is the async CLI with --check
+    --flight-dir, whose engine tier trips on this racy traffic (exit 3)
+    and dumps the invariant:check incident."""
+    w = ["--workload", "uniform", "--nodes", str(OBS["small_nodes"]),
+         "--trace-len", str(OBS["small_trace_len"])]
+    rc = ["--run-cycles", str(OBS["small_cycles"])]
+    return [
+        ("stats async", ["stats"] + w + rc + [
+            "--timeseries", "--txns", "--phases", "--timeseries-out",
+            "{out}/series.json"]),
+        ("stats sync", ["stats"] + w + ["--engine", "sync"]),
+        ("stats native", ["stats"] + w + ["--engine", "native"]),
+        ("trace async", ["trace"] + w + rc + ["--perfetto",
+                                              "{out}/trace.json"]),
+        ("trace deep", ["trace"] + w + ["--engine", "deep", "--perfetto",
+                                        "{out}/trace.json"]),
+        ("txns", ["txns"] + w + rc + ["--json", "--perfetto",
+                                      "{out}/txns.json"]),
+        ("critical-path", ["critical-path"] + w + rc + ["--json"]),
+        ("profile async", ["profile"] + w + rc + ["--json"]),
+        ("profile sync", ["profile"] + w + ["--engine", "sync", "--json"]),
+        ("profile deep", ["profile"] + w + ["--engine", "deep", "--json",
+                                            "--run-cycles", "4"]),
+        ("flight", w + ["--check", "--flight-dir", "{out}/flight"]),
+    ]
+
+
+def run_verb(argv: list, out: str) -> dict:
+    """``cli.main(argv)`` in this process with "{out}" replaced by
+    ``out`` (made first), its output captured: exit code, stdout,
+    stderr, wall seconds, launch counts (set to 0 just before) and, on a
+    card, the peak device memory of the run."""
+    import contextlib
+    import io
+    import os
+    import torch
+    from ue22cs343bb1_openmp_assignment_tpu_torch import bench, cli
+    os.makedirs(out, exist_ok=True)
+    argv = [a.replace("{out}", out) for a in argv]
+    card = "--cpu" not in argv
+    o, e = io.StringIO(), io.StringIO()
+    if card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    bench.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(o), contextlib.redirect_stderr(e):
+        rc = cli.main(argv)
+    if card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"rc": rc, "out": o.getvalue(),
+            "err": e.getvalue().replace(out, "{out}"), "wall": wall,
+            "launches": bench.launch_counts(),
+            "peak_bytes": (torch.cuda.max_memory_allocated() - base
+                           if card else None)}
+
+
+def verb_child(spec_path: str) -> int:
+    """A child process of the obs phase: run the spec's verbs (its
+    "runs": [label, argv, out] each) with ``run_verb`` and write their
+    results as JSON to the spec's "result" path."""
+    import torch
+    with open(spec_path) as f:
+        spec = json.load(f)
+    if spec.get("threads"):
+        torch.set_num_threads(spec["threads"])
+    results = {label: run_verb(argv, out) for label, argv, out in
+               spec["runs"]}
+    with open(spec["result"], "w") as f:
+        json.dump(results, f)
+    return 0
+
+
+def _start_children(tmp: str, groups: list) -> list:
+    """One child process per group of (label, argv, out) runs, all
+    started together: [(process, result path, log path)]."""
+    import os
+    kids = []
+    for i, (runs, threads) in enumerate(groups):
+        spec = os.path.join(tmp, f"child{i}.json")
+        with open(spec, "w") as f:
+            json.dump({"runs": runs, "threads": threads,
+                       "result": os.path.join(tmp, f"child{i}.out.json")}, f)
+        log = open(os.path.join(tmp, f"child{i}.log"), "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "sys.exit(chip_smoke.verb_child(sys.argv[1]))", spec],
+            cwd=os.path.dirname(os.path.abspath(__file__)), stdout=log,
+            stderr=subprocess.STDOUT)
+        kids.append((proc, os.path.join(tmp, f"child{i}.out.json"),
+                     log.name))
+        log.close()
+    return kids
+
+
+def _join_children(kids: list, timeout: float) -> dict:
+    """Wait for every child (killing the rest on a failure or at the
+    timeout) and merge their results."""
+    merged = {}
+    try:
+        deadline = time.perf_counter() + timeout
+        for proc, result, log in kids:
+            rc = proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            if rc != 0:
+                with open(log) as f:
+                    tail = f.read()[-2000:]
+                raise SmokeFailure(f"obs child exited {rc}: {tail}")
+            with open(result) as f:
+                merged.update(json.load(f))
+    finally:
+        for proc, _, _ in kids:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return merged
+
+
+def _files(path) -> dict:
+    import pathlib
+    root = pathlib.Path(path)
+    return {str(p.relative_to(root)): p.read_bytes()
+            for p in sorted(root.rglob("*")) if p.is_file()}
+
+
+def _stdout_doc(label: str, res: dict) -> dict:
+    if res["rc"] != 0:
+        raise SmokeFailure(f"obs {label}: exit {res['rc']}, stderr "
+                           f"{res['err'][-400:]}")
+    return json.loads(res["out"])
+
+
+def _same_run(label: str, card: dict, cpu: dict, card_dir: str,
+              cpu_dir: str) -> None:
+    """Card and --cpu runs equal: exit codes, stdout (``extra.phases``,
+    wall clock, by its phase names and counts), stderr, every file."""
+    if card["rc"] != cpu["rc"]:
+        raise SmokeFailure(f"obs {label}: exit {card['rc']} on the card, "
+                           f"{cpu['rc']} with --cpu: {cpu['err'][-300:]}")
+    if label == "stats async":
+        a, b = json.loads(card["out"]), json.loads(cpu["out"])
+        pa, pb = a["extra"].pop("phases"), b["extra"].pop("phases")
+        if a != b or ({k: v["count"] for k, v in pa["phases"].items()}
+                      != {k: v["count"] for k, v in pb["phases"].items()}):
+            raise SmokeFailure(f"obs {label}: card and --cpu documents "
+                               "differ")
+    elif card["out"] != cpu["out"]:
+        raise SmokeFailure(f"obs {label}: card and --cpu stdout differ")
+    if card["err"] != cpu["err"]:
+        raise SmokeFailure(f"obs {label}: card and --cpu stderr differ: "
+                           f"{card['err'][-300:]} vs {cpu['err'][-300:]}")
+    fa, fb = _files(card_dir), _files(cpu_dir)
+    if sorted(fa) != sorted(fb) or any(fa[k] != fb[k] for k in fa):
+        bad = sorted(k for k in set(fa) | set(fb) if fa.get(k) != fb.get(k))
+        raise SmokeFailure(f"obs {label}: card and --cpu files differ: {bad}")
+
+
+def _obs_full_width(tmp: str, card: str, sync_res: dict,
+                    prof_res: dict) -> None:
+    """async@4096 x 512: ``stats --timeseries`` over the first
+    OBS["cycles"] cycles in this process (telemetry totals equal to the
+    plain run's metrics) and, from a child, ``profile`` over the same
+    cycles (reads and writes equal to the retired ones, peak memory);
+    sync@4096 x 4096 K=3 ``profile`` over 64 rounds (a child; accesses
+    equal to the retired instructions of the same rounds through the
+    library)."""
+    import os
+    import torch
+    from ue22cs343bb1_openmp_assignment_tpu_torch.models.transactional \
+        import TransactionalSystem
+    from ue22cs343bb1_openmp_assignment_tpu_torch.obs import cohprof, verbs
+    N, L, R = OBS["nodes"], OBS["trace_len"], OBS["cycles"]
+    argv = ["stats", "--workload", "uniform", "--nodes", str(N),
+            "--trace-len", str(L), "--run-cycles", str(R), "--timeseries",
+            "--phases"]
+    res = run_verb(argv, os.path.join(tmp, "stats4096"))
+    doc = _stdout_doc("stats 4096", res)
+    tot = doc["extra"]["telemetry"]["counter_totals"]
+    bad = {k: (v, doc[k]) for k, v in tot.items() if v != doc[k]}
+    if bad or doc["steps"] != R or doc["instrs_retired"] <= 0:
+        raise SmokeFailure(f"obs stats@{N}: telemetry totals differ from "
+                           f"the run's metrics: {bad}")
+    _check_launches("obs stats 4096", res["launches"], {"threefry": 12})
+    ph = doc["extra"]["phases"]["phases"]
+    say("obs", f"async@{N} x {L} uniform, stats --timeseries over {R} "
+        f"cycles: telemetry counter totals equal to the run's metrics "
+        f"({doc['instrs_retired']} retired, {doc['invalidations']} "
+        f"invalidations); plain run {ph['run']['seconds']:.3f} s "
+        f"({ph['run']['seconds'] * 1e3 / R:.4f} ms/cycle), telemetry run "
+        f"{ph['telemetry_run']['seconds']:.3f} s "
+        f"({ph['telemetry_run']['seconds'] * 1e3 / R:.4f} ms/cycle), "
+        f"host read {ph['device_get']['seconds']:.3f} s; verb wall "
+        f"{res['wall']:.3f} s; threefry launches 12 ({card})")
+    pdoc = cohprof.validate(_stdout_doc("profile 4096", prof_res))
+    acc = pdoc["accesses"]
+    want = (doc["read_hits"] + doc["read_misses"],
+            doc["write_hits"] + doc["write_misses"])
+    if (acc["reads"], acc["writes"]) != want or pdoc["steps"] != R:
+        raise SmokeFailure(f"obs profile@{N}: accesses {acc} against the "
+                           f"run's retired reads and writes {want}")
+    _check_launches("obs profile 4096", prof_res["launches"],
+                    {"threefry": 12})
+    say("obs", f"async@{N} x {L} profile over {R} cycles: {acc['reads']} "
+        f"reads and {acc['writes']} writes equal to the run's, misses "
+        f"{pdoc['miss_classes']}, sharing dominant "
+        f"{pdoc['sharing']['dominant']}; verb wall {prof_res['wall']:.3f} "
+        f"s (a child process, beside the others) against the plain run's "
+        f"{ph['run']['seconds']:.3f} s; peak device memory "
+        f"{prof_res['peak_bytes'] / 2**30:.3f} GiB ({card})")
+    # sync@4096: the same 64 rounds through the library, plain rounds
+    K = OBS["sync_rounds"]
+    cfg = verbs.profile_config(N, deep=False)
+    ts = TransactionalSystem.from_workload(cfg, "uniform", trace_len=N,
+                                           device="cuda").run_rounds(K)
+    sdoc = cohprof.validate(_stdout_doc("profile sync 4096", sync_res))
+    acc = sdoc["accesses"]
+    if acc["reads"] + acc["writes"] != ts.metrics["instrs_retired"]:
+        raise SmokeFailure(f"obs sync profile@{N}: accesses {acc} against "
+                           f"{ts.metrics['instrs_retired']} retired")
+    _check_launches("obs profile sync 4096", sync_res["launches"],
+                    {"threefry": 12})
+    say("obs", f"sync@{N} x {N} K=3 profile over {K} rounds: {acc} equal "
+        f"to the {ts.metrics['instrs_retired']} retired by the library's "
+        f"{K} rounds; no sync kernel launched (the plain rounds of "
+        f"with_events); verb wall {sync_res['wall']:.3f} s (a child), "
+        f"peak device memory {sync_res['peak_bytes'] / 2**30:.3f} GiB "
+        f"({card})")
+    del ts
+    torch.cuda.empty_cache()
+
+
+def _obs_deep(tmp: str, card: str) -> None:
+    """The deep profile at its cap (2048 nodes) for OBS["deep_rounds"]
+    rounds in this process: the plain folds, so no fold or round kernel
+    launches, threefry its 12 building the workload; the abort anatomy
+    against the conflicts and retired counts of the same rounds through
+    the library (the fused round)."""
+    import os
+    from ue22cs343bb1_openmp_assignment_tpu_torch import cli
+    from ue22cs343bb1_openmp_assignment_tpu_torch.models.transactional \
+        import TransactionalSystem
+    from ue22cs343bb1_openmp_assignment_tpu_torch.obs import cohprof, verbs
+    N, L, R = OBS["deep_nodes"], OBS["deep_trace_len"], OBS["deep_rounds"]
+    argv = ["profile", "--workload", "uniform", "--nodes", str(N),
+            "--trace-len", str(L), "--engine", "deep", "--run-cycles",
+            str(R), "--json"]
+    res = run_verb(argv, os.path.join(tmp, "deep2048"))
+    doc = cohprof.validate(_stdout_doc("profile deep 2048", res))
+    _check_launches("obs profile deep 2048", res["launches"],
+                    {"threefry": 12})
+    cfg = verbs.profile_config(N, deep=True)
+    ts = TransactionalSystem.from_workload(cfg, "uniform", trace_len=L,
+                                           device="cuda")
+    ts = TransactionalSystem(cli.kernel_routes(cfg, ts.state.dm.device),
+                             ts.state).run_rounds(R)
+    m = ts.metrics
+    ab = doc["abort_anatomy"]
+    lost = ab["aborts"]["lane_loss"]
+    aborted = lost + ab["aborts"]["poison_ghost"] + \
+        ab["aborts"]["poison_real"] + ab["aborts"]["mark"]
+    if (ab["retired"] != m["instrs_retired"]
+            or doc["accesses"]["reads"] + doc["accesses"]["writes"]
+            != m["instrs_retired"]
+            or not lost <= m["conflicts"] <= aborted):
+        raise SmokeFailure(f"obs deep profile@{N}: anatomy {ab['aborts']}, "
+                           f"retired {ab['retired']}, against the rounds' "
+                           f"conflicts {m['conflicts']} and retired "
+                           f"{m['instrs_retired']}")
+    say("obs", f"deep@{N} x {L} profile over {R} rounds (plain folds): "
+        f"fold and round kernels 0 launches, threefry 12; retired "
+        f"{ab['retired']} equal to the library's {R} rounds (fused round); "
+        f"lane losses {lost} <= conflicts {m['conflicts']} <= lane losses "
+        f"+ aborts {aborted}; poison flags {ab['poison_flags']}; verb wall "
+        f"{res['wall']:.3f} s, peak device memory "
+        f"{res['peak_bytes'] / 2**30:.3f} GiB ({card})")
+
+
+def phase_obs(card: str) -> None:
+    """The observability captures and the verbs that run them, through
+    ``cli.main`` on the card: the full-width async telemetry and profile,
+    the sync profile at 4096 and the deep profile at 2048, each held to
+    its plain run's metrics; every verb and the flight incident at 256
+    nodes x 128 on the card against --cpu (the --cpu runs, the full-width
+    profiles and the sync profile in child processes, all started
+    together)."""
+    import os
+    import tempfile
+    from ue22cs343bb1_openmp_assignment_tpu_torch.native import bindings
+    t0 = time.perf_counter()
+    N, L = OBS["nodes"], OBS["trace_len"]
+    bindings.load_library()       # built once, before the children start
+    with tempfile.TemporaryDirectory() as tmp:
+        small = obs_small_runs()
+        cpu_runs = [(label, argv + ["--cpu"],
+                     os.path.join(tmp, "cpu", label.replace(" ", "_")))
+                    for label, argv in small]
+        n = OBS["cpu_children"]
+        groups = [([r for i, r in enumerate(cpu_runs) if i % n == k],
+                   OBS["cpu_threads"]) for k in range(n)]
+        groups.append(([("profile 4096", [
+            "profile", "--workload", "uniform", "--nodes", str(N),
+            "--trace-len", str(L), "--run-cycles", str(OBS["cycles"]),
+            "--json"], os.path.join(tmp, "prof4096"))], None))
+        groups.append(([("profile sync 4096", [
+            "profile", "--workload", "uniform", "--nodes", str(N),
+            "--trace-len", str(N), "--engine", "sync", "--run-cycles",
+            str(OBS["sync_rounds"]), "--json"],
+            os.path.join(tmp, "sync4096"))], None))
+        kids = _start_children(tmp, groups)
+        try:
+            card_res = {}
+            for label, argv in small:
+                card_res[label] = run_verb(
+                    argv, os.path.join(tmp, "card", label.replace(" ", "_")))
+            _obs_deep(tmp, card)
+        finally:
+            child = _join_children(kids, timeout=600)
+        for label, argv in small:
+            d = label.replace(" ", "_")
+            _same_run(label, card_res[label], child[label],
+                      os.path.join(tmp, "card", d), os.path.join(tmp, "cpu",
+                                                                 d))
+            _check_launches(f"obs {label}", card_res[label]["launches"],
+                            {"threefry": 12})
+        flight = card_res["flight"]
+        inc = os.path.join(tmp, "card", "flight", "flight",
+                           "incident_invariant")
+        from ue22cs343bb1_openmp_assignment_tpu_torch.obs import flight as fl
+        doc = fl.load_incident(inc)
+        if flight["rc"] != 3 or doc["reason"] != "invariant:check":
+            raise SmokeFailure(f"obs flight: exit {flight['rc']}, incident "
+                               f"{doc.get('reason')}")
+        say("obs", f"every verb at {OBS['small_nodes']} nodes x "
+            f"{OBS['small_trace_len']}: card and --cpu stdout, stderr and "
+            f"files equal ({', '.join(label for label, _ in small)}); "
+            f"threefry 12 launches a run and no other kernel; card walls "
+            + ", ".join(f"{label} {card_res[label]['wall']:.2f} s"
+                        for label, _ in small)
+            + f"; the flight run: exit 3, incident {doc['reason']} "
+            f"({doc['detail'][:60]}), {doc['cycles_run']} cycles, ring "
+            f"{len(doc['ring']['series']['instrs_retired'])} cycles, "
+            f"incident.json and trace.perfetto.json equal to --cpu's")
+        _obs_full_width(tmp, card, child["profile sync 4096"],
+                        child["profile 4096"])
+    say("obs", f"obs phase took {time.perf_counter() - t0:.1f} s")
+
+
 def phase_multi_card() -> None:
     import torch
     from ue22cs343bb1_openmp_assignment_tpu_torch.parallel import ring_kernel
@@ -2467,6 +2849,7 @@ def main() -> int:
         phase_async_uniform(rows)
         phase_multi_card()
         phase_cli(card)
+        phase_obs(card)
     except (SmokeFailure, AssertionError, RuntimeError, ValueError) as e:
         print(f"FAIL: {type(e).__name__}: {e}", flush=True)
         return 1

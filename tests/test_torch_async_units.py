@@ -261,13 +261,33 @@ def test_push_message_fills_and_drops_like_jax():
 
 
 def test_cycle_captures_of_a_later_slice_raise():
-    _, tcfg = cfg_pair(4, reference=True)
+    """The captures ported in slice 11: each returns the JAX contract's
+    extra output after the state, in the JAX order, and leaves the state
+    equal to the cycle without it."""
+    jcfg, tcfg = cfg_pair(4, reference=True)
     st = tstate.init_state(tcfg, device="cpu")
-    for cap in ("with_telemetry", "with_ledger", "with_obs",
-                "with_profile"):
-        with pytest.raises(NotImplementedError, match="slice 8"):
-            tstep.cycle(tcfg, st, **{cap: True})
-    assert dataclasses.is_dataclass(tstep.cycle(tcfg, st))
+    jst = jstate.init_state(jcfg)
+    plain = tstep.cycle(tcfg, st)
+    assert dataclasses.is_dataclass(plain)
+    kws = {"with_telemetry": dict(with_telemetry=True),
+           "with_ledger": dict(with_ledger=True),
+           "with_obs": dict(with_ledger=True, with_obs=True),
+           "with_profile": dict(with_profile=True)}
+    for cap, kw in kws.items():
+        if cap == "with_profile":
+            kw = dict(kw, prof=tstep.profile_zeros(tcfg, "cpu"))
+            jkw = dict(with_profile=True, prof=jstep.profile_zeros(jcfg))
+        else:
+            jkw = kw
+        out = tstep.cycle(tcfg, st, **kw)
+        want = jstep.cycle(jcfg, jst, **jkw)
+        assert isinstance(out, tuple) and len(out) == 2, cap
+        assert_sim_states_equal(plain, out[0])
+        assert_trees_equal(want[1], out[1], f"{cap}.")
+    out = tstep.cycle(tcfg, st, with_events=True, with_telemetry=True,
+                      with_ledger=True)
+    assert len(out) == 4 and "fetch" in out[1] and "counters" in out[2]
+    assert "enq_accept" in out[3]
     assert int(Op.NOP) == 2
 
 

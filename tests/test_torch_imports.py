@@ -54,7 +54,9 @@ def test_scans_cover_the_copied_modules():
     mods = {m for m, _ in _port_modules()}
     for copy in ("utils.search", "utils.eventlog", "utils.golden",
                  "utils.trace", "config", "types", "codec", "obs.schema",
-                 "utils.order_replay", "native.bindings"):
+                 "utils.order_replay", "native.bindings", "obs.phases",
+                 "obs.timeseries", "obs.txntrace", "obs.critpath",
+                 "obs.perfetto", "obs.cohprof", "obs.flight"):
         assert f"{PKG}.{copy}" in mods, copy
 
 
@@ -89,8 +91,8 @@ def test_entry_points_need_the_card_unless_asked_for_cpu(monkeypatch):
 
 def test_non_deep_configs_name_the_later_slice():
     """Non-deep configs run since the sync window engine was ported, the
-    deep round's event record and the ensembles since slice 8; what
-    still waits for a later slice says so, or is absent."""
+    deep round's event record and the ensembles since slice 8, the
+    profiling runners and the cycle's captures since slice 11."""
     _, cfg = cfg_pair(8, procedural="uniform", max_instrs=1)
     st = se.procedural_state(cfg, 4, device="cpu")
     assert int(se.round_step(cfg, st).round) == 1
@@ -99,12 +101,15 @@ def test_non_deep_configs_name_the_later_slice():
                             with_events=True)
     assert int(out.round) == 1 and ev["retired"].shape == (8, 16)
     for ported in ("make_ensemble", "run_ensemble_to_quiescence",
-                   "from_sim_state"):
+                   "from_sim_state", "run_sync_profile"):
         assert hasattr(se, ported)
-    assert not hasattr(se, "run_sync_profile")
     from ue22cs343bb1_openmp_assignment_tpu_torch.ops import step
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        step.cycle(cfg, None, with_telemetry=True)
+    from ue22cs343bb1_openmp_assignment_tpu_torch.state import init_state
+    _, acfg = cfg_pair(8)
+    sim = init_state(acfg, device="cpu")
+    new, telem = step.cycle(acfg, sim, with_telemetry=True)
+    assert int(new.cycle) == 1
+    assert telem["counters"].shape == (len(step.TELEMETRY_COUNTERS),)
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

@@ -9,6 +9,7 @@
     python -m ue22cs343bb1_openmp_assignment_tpu_torch.bench --engine async
         [--workload NAME] [--queue-capacity Q] [--shards D]
         [--transport rdma|all_to_all] [--profile CYCLES]
+        [--ledger | --coherence-profile]
 
 Runs a transactional engine at the JAX ``bench.py``'s defaults (4096
 nodes, 4096 uniform instructions per node, locality ``--local-frac``
@@ -51,7 +52,14 @@ traces, chunk 64, run to quiescence (``run_chunked_to_quiescence``).
 ``--shards D`` routes phase-3 delivery over D shards of the node axis
 (``parallel.rdma_comm.make_routed_deliver``): ``--transport rdma`` (the
 ring kernel, ``parallel/ring_kernel``) or ``all_to_all`` (the plain lane
-exchange); one shard delivers unrouted.
+exchange); one shard delivers unrouted. ``--ledger`` and
+``--coherence-profile`` (JAX ``bench.py:390-406``, ``:709-745``) time
+the observability captures instead of the plain run: the plain run's
+cycle count is found once (capture off), and each timed run replays
+exactly that many cycles under the message ledger
+(``obs.txntrace.capture``, chunk ``--chunk``, each chunk's ledger read to
+the host) or the coherence-profile planes (``ops.step.
+run_cycles_profile``); unrouted only, async only, one of the two.
 
 The JSON line carries instrs/sec, rounds (cycles for the async engine),
 ms/round (ms/cycle), the card's name and power limit, the workload and
@@ -274,6 +282,13 @@ def main(argv=None) -> int:
     ap.add_argument("--shards", type=int, default=1)
     ap.add_argument("--transport", choices=["rdma", "all_to_all"],
                     default="rdma")
+    ap.add_argument("--ledger", action="store_true",
+                    help="async engine: time the run under the causal "
+                         "message-ledger capture (obs.txntrace.capture)")
+    ap.add_argument("--coherence-profile", action="store_true",
+                    help="async engine: time the run under the "
+                         "coherence-profile planes "
+                         "(ops.step.run_cycles_profile)")
     args = ap.parse_args(argv)
     dev = torch.device(args.device)
     if args.replicas < 1:
@@ -281,6 +296,17 @@ def main(argv=None) -> int:
         return 2
     if args.engine != "sync" and args.replicas > 1:
         print("error: --replicas needs --engine sync", file=sys.stderr)
+        return 2
+    if args.ledger and (args.engine != "async" or args.shards != 1):
+        print("error: --ledger measures the async engine's message-ledger "
+              "capture, unrouted; use --engine async without --shards",
+              file=sys.stderr)
+        return 2
+    if args.coherence_profile and (args.engine != "async" or args.ledger
+                                   or args.shards != 1):
+        print("error: --coherence-profile measures the async engine's "
+              "profiler counter plane; use --engine async without "
+              "--ledger/--shards", file=sys.stderr)
         return 2
     if args.engine == "async":
         return async_main(args, dev)
@@ -402,13 +428,34 @@ def async_main(args, dev: torch.device) -> int:
             cfg, args.workload, device=dev,
             **gen_kwargs(args.workload, args.local_frac)).state
 
+    def plain(st):
+        return step.run_chunked_to_quiescence(cfg, st, args.chunk,
+                                              max_cycles,
+                                              deliver_fn=deliver_fn)
+
+    run, mode = plain, "plain"
+    if args.ledger or args.coherence_profile:
+        # the capture replays a fixed cycle count: the plain run's
+        cap_cycles = int(plain(fresh()).metrics.cycles)
+    if args.ledger:
+        from ue22cs343bb1_openmp_assignment_tpu_torch.obs import txntrace
+        mode = "ledger"
+
+        def run(st):
+            return txntrace.capture(cfg, st, cap_cycles, chunk=args.chunk,
+                                    stop_on_quiescence=False)[0]
+    if args.coherence_profile:
+        mode = "coherence_profile"
+
+        def run(st):
+            return step.run_cycles_profile(cfg, st, cap_cycles)[0]
+
     def one_run():
         st = fresh()
         _sync(dev)
         reset_launch_counts()
         t0 = time.perf_counter()
-        st = step.run_chunked_to_quiescence(cfg, st, args.chunk, max_cycles,
-                                            deliver_fn=deliver_fn)
+        st = run(st)
         _sync(dev)
         return time.perf_counter() - t0, st, launch_counts()
 
@@ -429,7 +476,7 @@ def async_main(args, dev: torch.device) -> int:
            "card": card_name_and_limit(dev), "engine": "async",
            "workload": args.workload, "procedural": False,
            "shards": args.shards, "transport": transport,
-           "launches": launches,
+           "capture": mode, "launches": launches,
            "config": {"nodes": args.nodes, "trace_len": args.trace_len,
                       "chunk": args.chunk,
                       "queue_capacity": cfg.queue_capacity,
@@ -437,10 +484,17 @@ def async_main(args, dev: torch.device) -> int:
                       "proc_local_permille": cfg.proc_local_permille,
                       "local_frac": args.local_frac}}
     if args.profile:
+        # the profiler window steps the cycle with the run's capture on
         st = step.run_cycles(cfg, fresh(), 64, deliver_fn=deliver_fn)
-        doc["profile"] = profile_steps(
-            lambda s: step.cycle(cfg, s, deliver_fn=deliver_fn), st,
-            args.profile)
+        kw = {"plain": {}, "ledger": {"with_ledger": True},
+              "coherence_profile": {"with_profile": True,
+                                    "prof": step.profile_zeros(cfg, dev)},
+              }[mode]
+
+        def step_fn(s):
+            out = step.cycle(cfg, s, deliver_fn=deliver_fn, **kw)
+            return out[0] if kw else out
+        doc["profile"] = profile_steps(step_fn, st, args.profile)
     print(json.dumps(doc))
     return 0
 

@@ -28,11 +28,22 @@ above it) and ``fused_round`` for a deep config that
 results are bit-identical on every route, so the dumps, logs and
 metrics equal the JAX CLI's.
 
+The verbs ``stats``, ``trace``, ``txns``, ``critical-path`` and
+``profile`` run an engine under the observability captures
+(``obs/verbs.py``, the port of the JAX ``obs/cli.py`` verbs).
+``--flight-dir`` arms the failure flight recorder (``obs/flight.py``) on
+the async engine: on a hang, a watchdog trip or a failed ``--check`` it
+replays the run from its initial state under the captures and dumps an
+incident directory (``incident.json`` with the last ``--flight-ring``
+cycles of telemetry, the metrics doc, the transaction summary and the
+coherence profile, and ``trace.perfetto.json``).
+
 Not ported yet (ROADMAP.md, Queue 1): the verbs that dispatch to the
-analysis, observability, serving and daemon modules (``analyze``,
-``stats``, ``trace``, ``replay``, ...; each exits 2 with a note), the
-flight recorder (``--flight-dir``), and ``--engine omp``, which builds
-the reference's own ``assignment.c``, not part of this repository.
+analysis, the other observability, serving and daemon modules
+(``analyze``, ``bench-diff``, ``perf-report``, ``dashboard``,
+``replay``, ...; each exits 2 with a note), and ``--engine omp``, which
+builds the reference's own ``assignment.c``, not part of this
+repository.
 """
 
 from __future__ import annotations
@@ -47,8 +58,7 @@ import numpy as np
 
 #: the JAX CLI's verbs, which dispatch to modules the port does not have
 #: yet (ROADMAP.md, Queue 1 items 4-7)
-LATER_VERBS = ("analyze", "stats", "trace", "bench-diff", "txns",
-               "critical-path", "perf-report", "profile", "dashboard",
+LATER_VERBS = ("analyze", "bench-diff", "perf-report", "dashboard",
                "serve", "soak", "daemon", "submit", "watch", "top",
                "replay")
 
@@ -142,6 +152,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="include message-dequeue events in --trace-log "
                         "(the reference's -DDEBUG_MSG, "
                         "assignment.c:179-182)")
+    p.add_argument("--flight-dir", metavar="DIR",
+                   help="arm the failure flight recorder (obs/flight): "
+                        "on a hang, watchdog trip, or --check "
+                        "invariant failure, dump a self-contained "
+                        "incident dir here (last --flight-ring cycles "
+                        "of telemetry + metrics doc + Perfetto trace "
+                        "of the deterministic replay)")
+    p.add_argument("--flight-ring", type=int, default=64,
+                   help="flight recorder ring depth in cycles "
+                        "(default 64)")
     p.add_argument("--cpu", action="store_true",
                    help="put every tensor on the CPU (default: the CUDA "
                         "card; without one the CLI exits with an error)")
@@ -618,6 +638,25 @@ def _main_async(args, dev) -> int:
               file=sys.stderr)
         return 2
 
+    # flight recorder: keep the pre-run state; on an incident the
+    # deterministic engine replays it under the captures, so the normal
+    # path pays nothing
+    flight0 = system.state if args.flight_dir else None
+
+    def _flight_dump(reason: str, detail: str = "") -> None:
+        if flight0 is None:
+            return
+        from ue22cs343bb1_openmp_assignment_tpu_torch.obs import flight
+        fr = flight.FlightRecorder(system.cfg, flight0,
+                                   k=args.flight_ring)
+        fr.run(max(1, int(system.state.cycle) - int(flight0.cycle)),
+               stop_on_quiescence=False)
+        out = os.path.join(args.flight_dir,
+                           f"incident_{reason.split(':', 1)[0]}")
+        fr.dump_incident(out, reason, detail)
+        print(f"flight recorder: incident dumped to {out}",
+              file=sys.stderr)
+
     if args.trace_log:
         from ue22cs343bb1_openmp_assignment_tpu_torch.utils import eventlog
         trace_base = int(system.state.cycle)
@@ -658,6 +697,14 @@ def _main_async(args, dev) -> int:
                   f"(first few: {report['nodes'][:4]}); recover by "
                   "resuming a checkpoint with backpressure (--admission) "
                   "or a different schedule", file=sys.stderr)
+            _flight_dump("watchdog:stall",
+                         f"{report['count']} node(s) stalled "
+                         f">{args.stall_threshold} cycles; nodes "
+                         f"{report['nodes'][:4]}")
+        else:
+            _flight_dump("hang:not_quiescent",
+                         f"not quiescent after {args.max_cycles} "
+                         f"cycles{hint}")
 
     if args.check or args.check_strict:
         try:
@@ -665,12 +712,15 @@ def _main_async(args, dev) -> int:
                 strict_coherence=args.check_strict)
         except AssertionError as e:
             print(f"invariant check FAILED: {e}", file=sys.stderr)
+            _flight_dump("invariant:check", str(e))
             return 3
         if not system.quiescent:
             # the coherence tier is only defined at quiescence
             if args.check_strict:
                 print("invariant check FAILED: machine not quiescent — "
                       "coherence tier not checkable", file=sys.stderr)
+                _flight_dump("invariant:not_quiescent",
+                             "coherence tier not checkable")
                 return 3
             print("invariant check passed (engine tier only; not "
                   "quiescent, coherence tier skipped)", file=sys.stderr)
@@ -688,6 +738,9 @@ def _main_async(args, dev) -> int:
 
 def main(argv=None) -> int:
     raw = sys.argv[1:] if argv is None else list(argv)
+    from ue22cs343bb1_openmp_assignment_tpu_torch.obs import verbs
+    if raw[:1] and raw[0] in verbs.VERBS:
+        return verbs.main(raw[0], raw[1:])
     if raw[:1] and raw[0] in LATER_VERBS:
         print(f"error: {raw[0]} is not ported yet; see ROADMAP.md",
               file=sys.stderr)

@@ -24,9 +24,9 @@ from ue22cs343bb1_openmp_assignment_tpu_torch.state import (
 def numpy_leaves(st) -> dict:
     """The leaves of any object with the SyncState fields (the JAX
     package's SyncState included) as numpy arrays, by field name."""
-    out = {f: np.asarray(_host(getattr(st, f))) for f in STATE_FIELDS}
+    out = {f: np.asarray(host(getattr(st, f))) for f in STATE_FIELDS}
     for f in METRIC_FIELDS:
-        out[f"metrics.{f}"] = np.asarray(_host(getattr(st.metrics, f)))
+        out[f"metrics.{f}"] = np.asarray(host(getattr(st.metrics, f)))
     return out
 
 
@@ -63,7 +63,9 @@ def from_numpy(cfg: SystemConfig, leaves: dict, device=None) -> SyncState:
                      metrics=metrics)
 
 
-def _host(x):
+def host(x):
+    """A tensor (on any device) as a numpy array; anything else as it
+    is: the host read of the port's captures and states."""
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
 
 
@@ -80,10 +82,10 @@ def sim_numpy_leaves(st) -> dict:
     numpy arrays by field name, in the JAX package's dtypes."""
     out = {}
     for f in SIM_FIELDS:
-        a = np.asarray(_host(getattr(st, f)))
+        a = np.asarray(host(getattr(st, f)))
         out[f] = a.view(np.uint32) if f in UINT32_FIELDS else a
     for f in SIM_METRIC_FIELDS:
-        out[f"metrics.{f}"] = np.asarray(_host(getattr(st.metrics, f)))
+        out[f"metrics.{f}"] = np.asarray(host(getattr(st.metrics, f)))
     return out
 
 

@@ -22,6 +22,13 @@ middle is the same code for both, and is plain tensor code: gathers,
 scatters and a scatter-min, held to the JAX index semantics by
 ``TorchIndexOps`` (clipped gathers, dropped scatters through a spare
 row).
+
+The round's anatomy (``return_stats``) and its coherence-profile delta
+(``return_profile``; ``run_deep_profile`` sums them, JAX
+``ops/deep_engine.py:1216``) read fold internals that the CUDA fold
+kernels do not export, so they run the plain folds on any device, as
+JAX runs them only on its XLA fold (its Pallas and fused folds never
+produce them).
 """
 
 from __future__ import annotations
@@ -40,11 +47,25 @@ from ue22cs343bb1_openmp_assignment_tpu_torch.ops.sync_engine import (
     slot_bits)
 from ue22cs343bb1_openmp_assignment_tpu_torch.procedural import (
     procedural_instr)
-from ue22cs343bb1_openmp_assignment_tpu_torch.types import (CacheState,
+from ue22cs343bb1_openmp_assignment_tpu_torch.types import (CacheState, Op,
                                                             DirState)
 
 # dense per-own-entry flag bits (fold output, gathered by remote events)
 F_MARK, F_POISON = 1, 2
+
+#: column order of the per-address / per-node abort-attribution planes
+#: (round_step_deep(return_profile=True) / run_deep_profile): a slot
+#: failed to commit because a GHOST poison flag (never confirmed by the
+#: committed replay) or a REAL one aborted it, a mark aborted its
+#: eviction notice, it lost its arbitration lane, or its cache-hit probe
+#: was unsafe
+PROFILE_ABORT_CLASSES = ("poison_ghost", "poison_real", "mark",
+                         "lane_loss", "probe")
+
+#: column order of the per-node window-stop counters (the replay fold's
+#: stop reasons: slot-budget overflow, ownerval-slot overflow, same-entry
+#: re-touch, cross-slot dependency, liveness cap)
+PROFILE_STOP_CLASSES = ("over_q", "over_g", "dup", "dep", "live")
 
 I32 = torch.int32
 
@@ -175,7 +196,9 @@ class TorchIndexOps:
 
 
 def round_step_deep(cfg: SystemConfig, st: SyncState,
-                    fold_impl: str = "kernel", with_events: bool = False):
+                    fold_impl: str = "kernel", with_events: bool = False,
+                    return_stats: bool = False,
+                    return_profile: bool = False):
     """One deep-window round.
 
     ``fold_impl`` selects how the three W-step folds run: ``"kernel"``
@@ -188,10 +211,30 @@ def round_step_deep(cfg: SystemConfig, st: SyncState,
     ``with_events`` also returns the round's retirement record, read
     from the replay fold's ``n_ret`` (so on the card the event record
     comes through the fold kernels): (state, {"retired", "op", "addr",
-    "value"}), each [N, W]."""
+    "value"}), each [N, W].
+
+    ``return_stats`` instead returns (state, stats): the round's anatomy
+    as 0-d sums (JAX ``ops/deep_engine.py:1122``). ``return_profile``
+    instead returns (state, delta): the round's additive coherence-
+    profile planes (``deep_profile_zeros``'s keys; JAX ``:1145``). One
+    round returns one extra value, so these exclude ``with_events`` and
+    each other, and both need ``fold_impl="plain"`` (JAX: its XLA fold):
+    they read fold internals (the committed poison flags, the stop
+    reasons) that the fold kernels do not export."""
     if fold_impl not in ("kernel", "plain"):
         raise ValueError(f"fold_impl must be 'kernel' or 'plain', "
                          f"not {fold_impl!r}")
+    if with_events and return_stats:
+        raise ValueError("with_events and return_stats are mutually "
+                         "exclusive (one round returns one extra value)")
+    if return_profile and (with_events or return_stats):
+        raise ValueError("return_profile is exclusive with with_events/"
+                         "return_stats (one round returns one extra "
+                         "value)")
+    if (return_stats or return_profile) and fold_impl != "plain":
+        raise ValueError("return_stats/return_profile need the plain fold "
+                         "(the CUDA fold kernels do not export the "
+                         "anatomy fields)")
     from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
         deep_fold_kernel as dfk)
     folds = dfk.WRAPPERS if fold_impl == "kernel" else dfk.PLAIN
@@ -203,11 +246,16 @@ def round_step_deep(cfg: SystemConfig, st: SyncState,
         return folds["flags"](cfg, st, tiles, *win, oc)
 
     def fold_replay_fn(bad, oc):
+        if return_stats or return_profile:
+            # the whole final carry: the anatomy reads poison, the stop
+            # reasons and the truncation flags
+            return _fold_deep(cfg, st, tiles, *win, bad=bad, ocode=oc)
         return folds["replay"](cfg, st, tiles, *win, bad, oc)
 
     core = deep_round_core(cfg, st.dm, st.round, st.seed, pre,
                            fold_flags_fn, fold_replay_fn, TorchIndexOps())
-    return _finish_round_deep(cfg, st, core, win[0], win[1], with_events)
+    return _finish_round_deep(cfg, st, core, win[0], win[1], with_events,
+                              return_stats, return_profile)
 
 
 def deep_round_core(cfg: SystemConfig, dm0, round_, seed, pre,
@@ -634,16 +682,27 @@ def deep_round_core(cfg: SystemConfig, dm0, round_, seed, pre,
         torch.sum(kill, dim=0, dtype=I32),
         torch.sum(promo, dim=0, dtype=I32),
     ])                                                       # [10, N]
+    aborting = req_abort | ev_abort
     return dict(ca_c=ca_c, cv_c=cv_c, cs_c=cs_c, dm=dm, rp=rp,
-                delta_rows=delta_rows)
+                delta_rows=delta_rows,
+                # dense internals for the stats and profile tails
+                kind=kind, is_req=is_req, is_ev=is_ev, won_any=won_any,
+                aborting=aborting, probe_bad=probe_bad,
+                commit_acc=commit_acc, rel_acc=rel_acc,
+                clean_self=clean_self, storm_committed=storm_committed,
+                ent=ent, poison_src=poison_src, req_abort=req_abort)
 
 
 def _finish_round_deep(cfg: SystemConfig, st: SyncState, core,
-                       w_oa=None, w_val=None, with_events: bool = False):
+                       w_oa=None, w_val=None, with_events: bool = False,
+                       return_stats: bool = False,
+                       return_profile: bool = False):
     """Fold a deep_round_core result back into the SyncState: metrics
     from the per-node delta rows, window-cursor/horizon advance. With
     ``with_events``, also the retirement record of the window
-    ``w_oa``/``w_val`` [W, N]: (state, events), each event [N, W]."""
+    ``w_oa``/``w_val`` [W, N]: (state, events), each event [N, W]. With
+    ``return_stats`` / ``return_profile``, (state, stats) / (state,
+    profile delta) as JAX ``_finish_round_deep``."""
     rp = core["rp"]
     deltas = torch.sum(core["delta_rows"], dim=1, dtype=I32)
     out = st.replace(
@@ -654,6 +713,10 @@ def _finish_round_deep(cfg: SystemConfig, st: SyncState, core,
         horizon=torch.clamp(rp["n_ret"] + cfg.deep_horizon_slack, 2,
                             1 << 20),
         round=st.round + 1, metrics=st.metrics.after_round(deltas))
+    if return_stats:
+        return out, _round_stats(st, core)
+    if return_profile:
+        return out, _round_profile(cfg, core, w_oa)
     if not with_events:
         return out
     W = w_oa.shape[0]
@@ -661,3 +724,120 @@ def _finish_round_deep(cfg: SystemConfig, st: SyncState, core,
     return out, {"retired": offs < rp["n_ret"][:, None],
                  "op": w_oa.T >> 28, "addr": w_oa.T & 0x0FFFFFFF,
                  "value": w_val.T}
+
+
+def _round_stats(st: SyncState, core) -> dict:
+    """The round's anatomy as 0-d int32 sums (JAX
+    ``ops/deep_engine.py:1122-1143``)."""
+    rp, kind = core["rp"], core["kind"]
+    is_req, is_ev = core["is_req"], core["is_ev"]
+
+    def s_(x):
+        return torch.sum(x, dtype=I32)
+    return dict(
+        n_ret=s_(rp["n_ret"]), truncated=s_(rp["truncated"]),
+        stopped=s_(rp["stopped"]), seen_req=s_(rp["seen_req"]),
+        n_slot=s_(rp["n_slot"]), horizon_sum=s_(st.horizon),
+        att_rd=s_(kind == K_RD), att_wr=s_(kind == K_WR),
+        att_up=s_(kind == K_UP), att_evs=s_(kind == K_EVS),
+        att_evm=s_(kind == K_EVM), att_probe=s_(kind == K_PROBE),
+        lost=s_((is_req | is_ev) & ~core["won_any"] & ~core["aborting"]
+                & ~core["storm_committed"]),
+        abort_poison=s_(core["aborting"] & is_req),
+        abort_mark=s_(core["aborting"] & is_ev),
+        probe_bad=s_(core["probe_bad"]),
+        committed=s_(core["commit_acc"]),
+        released=s_(core["rel_acc"]),
+        clean=s_(core["clean_self"]),
+        storm=s_(core["storm_committed"]),
+        stop_overq=s_(rp["s_overq"]), stop_overg=s_(rp["s_overg"]),
+        stop_dup=s_(rp["s_dup"]), stop_dep=s_(rp["s_dep"]),
+        stop_live=s_(rp["s_live"]))
+
+
+def _round_profile(cfg: SystemConfig, core, w_oa) -> dict:
+    """The round's additive coherence-profile planes (JAX
+    ``ops/deep_engine.py:1145-1192``): the abort attribution tells the
+    poison flags the committed replay confirmed (rp["poison"]) from the
+    ghosts the speculative flag source raised beyond the committed
+    prefix. Dropped scatter lanes add 0 at a clipped index."""
+    N, S = cfg.num_nodes, 1 << cfg.block_bits
+    E = N * S
+    W = cfg.drain_depth + cfg.txn_width
+    rp = core["rp"]
+    dev = w_oa.device
+    i64 = torch.int64
+    is_req, is_ev = core["is_req"], core["is_ev"]
+    real_arr = rp["poison"].T.reshape(E)                       # [E] bool
+    ent = torch.clamp(core["ent"], 0, E - 1).to(i64)           # [Q, N]
+    flag_real = real_arr[ent]
+    lost = ((is_req | is_ev) & ~core["won_any"] & ~core["aborting"]
+            & ~core["storm_committed"])
+    classes = torch.stack([                                    # [Q, N, 5]
+        core["req_abort"] & ~flag_real,
+        core["req_abort"] & flag_real,
+        core["aborting"] & is_ev,
+        lost,
+        core["probe_bad"]], dim=-1).to(I32)
+    abort_addr = torch.zeros((E, 5), dtype=I32, device=dev)
+    abort_addr.index_add_(0, ent.reshape(-1), classes.reshape(-1, 5))
+    # retired-access planes from the committed window prefix
+    offs = torch.arange(W, dtype=I32, device=dev)[:, None]    # [W, 1]
+    ret = offs < rp["n_ret"][None, :]                          # [W, N]
+    opw = w_oa >> 28
+    rows = torch.arange(N, dtype=i64, device=dev)
+    flat = (rows[None, :] * E
+            + torch.clamp(w_oa & 0x0FFFFFFF, 0, E - 1).to(i64)).reshape(-1)
+
+    def plane(op):
+        p = torch.zeros(N * E, dtype=I32, device=dev)
+        p.index_add_(0, flat, (ret & (opw == int(op))).reshape(-1).to(I32))
+        return p.reshape(N, E)
+    return dict(
+        rd=plane(Op.READ), wr=plane(Op.WRITE),
+        abort_addr=abort_addr,                                 # [E, 5]
+        abort_node=torch.sum(classes, dim=0, dtype=I32),       # [N, 5]
+        stops=torch.stack([rp["s_overq"], rp["s_overg"], rp["s_dup"],
+                           rp["s_dep"], rp["s_live"]]).to(I32),  # [5, N]
+        poison_raised=torch.sum(core["poison_src"], dtype=I32),
+        poison_committed=torch.sum(rp["poison"], dtype=I32),
+        n_ret=rp["n_ret"].to(I32))                             # [N]
+
+
+def deep_profile_zeros(cfg: SystemConfig, device=None) -> dict:
+    """The zeroed accumulator of run_deep_profile, with the keys and
+    shapes of round_step_deep's return_profile delta (JAX
+    ``ops/deep_engine.py:1202``). ``device`` None means the card."""
+    from ue22cs343bb1_openmp_assignment_tpu_torch import device as _device
+    dev = _device.resolve(device)
+    N, S = cfg.num_nodes, 1 << cfg.block_bits
+    E = N * S
+
+    def z(*shape):
+        return torch.zeros(shape, dtype=I32, device=dev)
+    return dict(rd=z(N, E), wr=z(N, E), abort_addr=z(E, 5),
+                abort_node=z(N, 5), stops=z(5, N), poison_raised=z(),
+                poison_committed=z(), n_ret=z(N))
+
+
+def run_deep_profile(cfg: SystemConfig, st: SyncState, n: int):
+    """Run n deep rounds accumulating the coherence-profile planes (JAX
+    ``ops/deep_engine.py:1216``): (state, prof), prof a
+    ``deep_profile_zeros`` dict after summation: retired accesses, the
+    PROFILE_ABORT_CLASSES attribution, the PROFILE_STOP_CLASSES window
+    stops and the raised / committed poison-flag totals (their ratio is
+    the measured ghost fraction). The rounds are ``round_step_deep``
+    with the plain folds, on the card too: the fold kernels do not
+    export the anatomy, and JAX's runner takes its XLA fold likewise
+    (neither its Pallas folds nor its fused round produce the profile).
+    No fold or round kernel launches."""
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops.sync_engine import (
+        _assert_round_budget)
+    _assert_round_budget(cfg, st.round, n)
+    prof = deep_profile_zeros(cfg, st.cache_addr.device)
+    for _ in range(n):
+        st, d = round_step_deep(cfg, st, fold_impl="plain",
+                                return_profile=True)
+        for k in prof:
+            prof[k] += d[k]
+    return st, prof

@@ -85,6 +85,8 @@ def fold_carry0(cfg: SystemConfig, ca, cv, cs, dm_rows, zero, false):
         n_slot=zero, n_g=zero, seen_req=false,
         n_ret=zero, rh=zero, wh=zero,
         c_rd=zero, c_wr=zero, c_up=zero, c_ev=zero,
+        s_overq=false, s_overg=false, s_dup=false, s_dep=false,
+        s_live=false,
         kind=[zero] * Q, ent=[zero] * Q, sval=[zero] * Q,
         comm=[false] * Q,
         rel=[false] * Q, relv=[zero] * Q, reld=[false] * Q,
@@ -205,6 +207,16 @@ def fold_step(cfg: SystemConfig, c, node, oa, val, live, k, horizon,
         dep_stop | over_q | over_g | dup | ~(hit | is_txn))
     stop_now = stop_now | ((~c["stopped"]) & ~live)
     act = ~c["stopped"] & ~stop_now & (hit | is_txn)
+    # stop-reason flags (the profile's window stops; priority order
+    # mirrors stop_now)
+    was = ~c["stopped"]
+    s_live = c["s_live"] | (was & stop_now & ~live)
+    s_dep = c["s_dep"] | (was & stop_now & live & dep_stop)
+    s_overq = c["s_overq"] | (was & stop_now & live & ~dep_stop & over_q)
+    s_overg = c["s_overg"] | (was & stop_now & live & ~dep_stop
+                              & ~over_q & over_g)
+    s_dup = c["s_dup"] | (was & stop_now & live & ~dep_stop & ~over_q
+                          & ~over_g & dup)
 
     # --- truncation (replay only; pre-pass gets zero bad/ocode) ------------
     o1 = c["n_slot"]
@@ -367,6 +379,8 @@ def fold_step(cfg: SystemConfig, c, node, oa, val, live, k, horizon,
                 n_slot=n_slot, n_g=n_g, seen_req=seen_req,
                 n_ret=n_ret, rh=rh, wh=wh,
                 c_rd=c_rd, c_wr=c_wr, c_up=c_up, c_ev=c_ev,
+                s_overq=s_overq, s_overg=s_overg, s_dup=s_dup,
+                s_dep=s_dep, s_live=s_live,
                 kind=kind, ent=ent, sval=sval, comm=comm,
                 rel=rel, relv=relv, reld=reld,
                 g_owner=g_owner, g_ci=g_ci)

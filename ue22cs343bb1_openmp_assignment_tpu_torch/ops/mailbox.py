@@ -14,7 +14,10 @@ quirk 6).
 Every sort is stable, as ``jnp.argsort`` is. The delivery scatter sends
 its dropped lanes to one spare ring row past the last node, which is
 sliced off: kept lanes are unique, so the scatter is exact and needs no
-host sync. The message-ledger capture (``with_accept``) is a later slice.
+host sync. With ``with_accept`` (the message-ledger capture of
+``ops.step``), ``deliver`` also returns the final accept mask in the
+[N, out_slots] candidate layout, un-permuted by one scatter through the
+arrival order (JAX ``ops/mailbox.py:233``).
 """
 
 from __future__ import annotations
@@ -151,10 +154,16 @@ def ring_scatter(mb_pack, mb_count, tgt_r, tgt_p, accept, pack):
 
 
 def deliver(cfg: SystemConfig, state, cand: Candidates, arb_rank,
-            new_head, new_count) -> tuple:
+            new_head, new_count, *, with_accept: bool = False) -> tuple:
     """Scatter candidates into the rings with deterministic arbitration
     (lower arb_rank enqueues first at every receiver). Returns (state
     updates dict, dropped count, injected count) as the JAX deliver.
+
+    With ``with_accept=True`` the updates dict also carries
+    ``enq_accept``: the final per-candidate accept mask (after capacity
+    and fault drops) scattered back to the [N, S] (sender, slot) layout,
+    for the message ledger (``ops.step.cycle(with_ledger=True)``); the
+    caller pops it before ``state.replace``.
 
     When cfg.drop_prob > 0, each otherwise-accepted message is dropped
     with that probability (fault injection): ``state.fault_key`` splits
@@ -195,6 +204,12 @@ def deliver(cfg: SystemConfig, state, cand: Candidates, arb_rank,
         torch.where(accept, pos, 0), accept, pack)
     updates = dict(mb_pack=mb_pack, mb_head=new_head, mb_count=mb_count,
                    fault_key=fault_key)
+    if with_accept:
+        # undo the arbitration sort: accept[i] belongs to candidate
+        # order[i] (a permutation, so the scatter is exact)
+        acc = torch.zeros(F, dtype=torch.bool, device=accept.device)
+        acc[order] = accept
+        updates["enq_accept"] = acc.reshape(N, S)
     return updates, dropped, injected
 
 

@@ -22,8 +22,22 @@ Only the packed commit of the JAX cycle is ported (its ``_PACKED_COMMIT``
 seam serves the JAX index auditor). Each family's row commit is a
 one-hot ``where`` over the row's columns: the same writes as the JAX
 drop-scatter, whose kept lanes are one per node. ``run_cycles_traced``
-stacks the per-cycle event record. The telemetry, ledger, obs and
-profile captures are a later slice.
+stacks the per-cycle event record.
+
+The observability captures (JAX ``ops/step.py:39-80``, ``:449-651``):
+``with_telemetry`` (the per-cycle counter deltas, dequeues by type,
+queue watermarks, directory occupancy and latency histogram),
+``with_ledger`` / ``with_obs`` (the message ledger in the JAX dtypes,
+with ``mailbox.deliver``'s accept mask) and ``with_profile`` (the
+coherence-profile planes). Their runners, ``run_cycles_telemetry``
+(JAX ``:706``), ``run_cycles_ledger`` (``:750``) and
+``run_cycles_profile`` (``:789``), are Python loops like
+``run_cycles_traced``: the samples are stacked per cycle, the profile
+rides the carry. The JAX scatter-adds with ``mode="drop"`` become
+``index_add_`` on flat views whose dropped lanes add 0 at a clipped
+index (one launch each; the int32 adds are exact in any order), and the
+last-writer scatter-min goes through a spare tail slot that is sliced
+off.
 """
 
 from __future__ import annotations
@@ -37,10 +51,71 @@ from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (frontend, handlers,
 from ue22cs343bb1_openmp_assignment_tpu_torch.state import (LAT_BUCKETS,
                                                             SimState,
                                                             floor_log2)
-from ue22cs343bb1_openmp_assignment_tpu_torch.types import CacheState
+from ue22cs343bb1_openmp_assignment_tpu_torch.types import (CacheState,
+                                                            DirState, Msg,
+                                                            Op)
 
 I32 = torch.int32
-_LATER = ("with_telemetry", "with_ledger", "with_obs", "with_profile")
+INT32_MAX = 2**31 - 1
+
+#: names of the per-cycle counter-delta vector of the telemetry sample
+#: (cycle(with_telemetry=True) / run_cycles_telemetry), in order: the
+#: composition of the cumulative Metrics update
+TELEMETRY_COUNTERS = ("instrs_retired", "read_hits", "write_hits",
+                      "read_misses", "write_misses", "upgrades",
+                      "invalidations", "evictions")
+
+#: fields of the per-cycle message-ledger sample (cycle(with_ledger=
+#: True)): the dequeue record, the per-(node, slot) enqueue candidates
+#: with the post-arbitration accept mask, the frontend issue/latch record
+#: and the wait-clear mask (what obs/txntrace.py reconstructs spans
+#: from); ``with_obs=True`` adds the retire observation (LEDGER_OBS_FIELDS)
+LEDGER_FIELDS = ("deq_has", "deq_sender", "deq_type", "deq_addr",
+                 "enq_accept", "enq_type", "enq_recv", "enq_addr",
+                 "fetch", "issue", "op", "addr", "value", "unblocked")
+LEDGER_OBS_FIELDS = ("obs_retire", "obs_val")
+
+#: miss-taxonomy columns of the profile's ``miss_node``/``miss_addr``
+#: planes: Hill & Smith's 3C classes with conflict and capacity in one
+#: (the cache is direct-mapped), plus the coherence invalidation and the
+#: upgrade (a write hit on a SHARED line)
+PROFILE_MISS_CLASSES = ("cold", "conflict_eviction",
+                        "coherence_invalidation", "upgrade")
+
+#: power-of-two buckets of the invalidation fan-out histogram: bucket 0
+#: (fan-out 0) is never recorded; bucket b >= 1 holds fan-outs in
+#: [2^(b-1), 2^b)
+FANOUT_BUCKETS = 16
+
+
+def profile_space(cfg: SystemConfig) -> int:
+    """The profile plane's address axis: the global address space
+    ``N << block_bits``."""
+    return cfg.num_nodes << cfg.block_bits
+
+
+def profile_zeros(cfg: SystemConfig, device=None) -> dict:
+    """The zeroed profile carry of run_cycles_profile (JAX
+    ``ops/step.py:89``): rd / wr / ever [N, A] (per-(node, address)
+    reads, writes and ever-fetched), miss_node [N, 4], miss_addr [A, 4]
+    (PROFILE_MISS_CLASSES), inv_addr [A], inv_fanout [FANOUT_BUCKETS],
+    wb_addr [A], last_writer [A] (-1: none yet), mig_addr [A]. ``device``
+    None means the card."""
+    from ue22cs343bb1_openmp_assignment_tpu_torch import device as _device
+    dev = _device.resolve(device)
+    N, A = cfg.num_nodes, profile_space(cfg)
+
+    def z(*shape):
+        return torch.zeros(shape, dtype=I32, device=dev)
+    return {
+        "rd": z(N, A), "wr": z(N, A),
+        "ever": torch.zeros((N, A), dtype=torch.bool, device=dev),
+        "miss_node": z(N, 4), "miss_addr": z(A, 4),
+        "inv_addr": z(A), "inv_fanout": z(FANOUT_BUCKETS),
+        "wb_addr": z(A),
+        "last_writer": torch.full((A,), -1, dtype=I32, device=dev),
+        "mig_addr": z(A),
+    }
 
 
 def cycle(cfg: SystemConfig, state: SimState, with_events: bool = False,
@@ -54,14 +129,25 @@ def cycle(cfg: SystemConfig, state: SimState, with_events: bool = False,
     ``DEBUG_MSG`` tracing) as a dict of [N] tensors: ``(state, events)``.
     ``message_phase`` overrides the handler phase; ``deliver_fn``
     overrides phase-3 delivery (the contract of ``mailbox.deliver``).
-    The other captures raise NotImplementedError.
+
+    The captures append their sample to the output tuple in the JAX
+    order ``(state, events, telem, ledger, prof)``:
+
+    - ``with_telemetry``: the counter deltas (TELEMETRY_COUNTERS; the
+      invalidations include the scatter-mode INV fan-out, as the
+      cumulative metric), per-type dequeues, dropped counts, the
+      latency-histogram delta, queue-depth watermarks, directory
+      occupancy (EM, S, U) and waiting nodes;
+    - ``with_ledger``: LEDGER_FIELDS in the JAX dtypes (node ids int8 up
+      to 127 nodes, int16 up to 32767; addresses int16 while
+      ``cfg.invalid_address`` fits; types int8), the accept mask in
+      (sender, slot) layout; ``with_obs`` adds LEDGER_OBS_FIELDS;
+    - ``with_profile``: the profile planes of ``prof`` (a
+      ``profile_zeros`` dict) after this cycle. The miss taxonomy reads
+      the pre-commit cache tags and ``prof["ever"]`` before its update.
+      The port updates the planes of ``prof`` in place (the runner's
+      carry; at 4096 nodes rd and wr are 1 GiB each) and returns it.
     """
-    later = [name for name, on in zip(
-        _LATER, (with_telemetry, with_ledger, with_obs, with_profile)) if on]
-    if later:
-        raise NotImplementedError(
-            f"{', '.join(later)}: the telemetry, ledger, obs and profile "
-            "captures are a later slice of the port (ROADMAP.md slice 8)")
     if message_phase is None:
         message_phase = handlers.message_phase
     N, C, M = cfg.num_nodes, cfg.cache_size, cfg.mem_size
@@ -120,14 +206,21 @@ def cycle(cfg: SystemConfig, state: SimState, with_events: bool = False,
     cand = assemble_candidates(cfg, mv, m_cand, f_req, rows)
 
     # phase 3: delivery
-    deliver = deliver_fn if deliver_fn is not None else mailbox.deliver
-    mb_upd, dropped, injected = deliver(cfg, state, cand, state.arb_rank,
-                                        new_head, new_count)
+    if deliver_fn is not None:
+        mb_upd, dropped, injected = deliver_fn(cfg, state, cand,
+                                               state.arb_rank, new_head,
+                                               new_count)
+    else:
+        mb_upd, dropped, injected = mailbox.deliver(
+            cfg, state, cand, state.arb_rank, new_head, new_count,
+            with_accept=with_ledger)
+    enq_accept = mb_upd.pop("enq_accept", None)
 
     # scatter-mode INV application: a broadcast for address a comes only
     # from home(a), which handles one message a cycle, so each cached
     # line needs one lookup at its home
     inv_applied = torch.zeros((), dtype=I32, device=dev)
+    kill_live = h = None              # [N, C] live lines the INV killed
     if inv_scatter is not None:
         im, ia, ibv = inv_scatter                  # [N], [N], [N, W]
         h = codec.home_node(cfg, cache_addr).clamp(0, N - 1)    # [N, C]
@@ -158,6 +251,7 @@ def cycle(cfg: SystemConfig, state: SimState, with_events: bool = False,
         m_stats["evictions"]])                                     # [8, N]
     deltas = torch.cat([counters, type_onehot, lat_onehot]).sum(
         1, dtype=I32)                                              # [8+K+B]
+    depth_peak = mb_upd["mb_count"].max()
     metrics = mt.replace(
         cycles=mt.cycles + 1,
         instrs_retired=mt.instrs_retired + deltas[0],
@@ -172,9 +266,12 @@ def cycle(cfg: SystemConfig, state: SimState, with_events: bool = False,
         invalidations=mt.invalidations + deltas[6] + inv_applied,
         evictions=mt.evictions + deltas[7],
         lat_hist=mt.lat_hist + deltas[8 + K:],
-        mb_depth_peak=torch.maximum(mt.mb_depth_peak,
-                                    mb_upd["mb_count"].max()),
+        mb_depth_peak=torch.maximum(mt.mb_depth_peak, depth_peak),
     )
+    if with_profile:
+        _profile_update(cfg, state, prof, rows, mv, m_cand, f_stats,
+                        m_stats["unblocked"], fetch, l_addr, cache_addr,
+                        kill_live, h)
 
     new_state = state.replace(
         cache_addr=cache_addr, cache_val=cache_val, cache_state=cache_state,
@@ -182,16 +279,154 @@ def cycle(cfg: SystemConfig, state: SimState, with_events: bool = False,
         instr_idx=f_upd["new_idx"], cur_op=cur_op, cur_addr=cur_addr,
         cur_val=cur_val, waiting=waiting, waiting_since=waiting_since,
         cycle=state.cycle + 1, metrics=metrics, **mb_upd)
-    if not with_events:
+    if not (with_events or with_telemetry or with_ledger or with_profile):
         return new_state
-    events = {
-        # instruction fetch (assignment.c:649-652)
-        "fetch": fetch, "op": l_op, "addr": l_addr, "value": l_val,
-        # message dequeue (assignment.c:179-182)
-        "msg": mv.has_msg, "msg_sender": mv.sender,
-        "msg_type": mv.type, "msg_addr": mv.addr,
-    }
-    return new_state, events
+    out = (new_state,)
+    if with_events:
+        out += ({
+            # instruction fetch (assignment.c:649-652)
+            "fetch": fetch, "op": l_op, "addr": l_addr, "value": l_val,
+            # message dequeue (assignment.c:179-182)
+            "msg": mv.has_msg, "msg_sender": mv.sender,
+            "msg_type": mv.type, "msg_addr": mv.addr,
+        },)
+    if with_telemetry:
+        out += ({
+            "counters": torch.stack([
+                deltas[0], deltas[1], deltas[2], deltas[3], deltas[4],
+                deltas[5], deltas[6] + inv_applied, deltas[7]]),   # [8]
+            "msgs_processed": deltas[8:8 + K],
+            "msgs_dropped": dropped,
+            "msgs_injected_dropped": injected,
+            "lat_hist": deltas[8 + K:],
+            # mailbox queue-depth watermarks after this cycle's delivery
+            "queue_depth_max": depth_peak,
+            "queue_depth_total": mb_upd["mb_count"].sum(dtype=I32),
+            "dir_occupancy": torch.stack(
+                [(dir_state == int(s)).sum(dtype=I32)
+                 for s in (DirState.EM, DirState.S, DirState.U)]),
+            "waiting_nodes": waiting.sum(dtype=I32),
+        },)
+    if with_ledger:
+        n_dt = (torch.int8 if N <= 127 else
+                torch.int16 if N <= 32767 else I32)
+        a_dt = torch.int16 if cfg.invalid_address <= 32767 else I32
+        i8 = torch.int8
+        ledger = {
+            # phase-1 dequeue record (masked by deq_has)
+            "deq_has": mv.has_msg, "deq_sender": mv.sender.to(n_dt),
+            "deq_type": mv.type.to(i8), "deq_addr": mv.addr.to(a_dt),
+            # phase-3 candidates and the final accept mask, (sender,
+            # program-order slot) layout
+            "enq_accept": enq_accept, "enq_type": cand.type.to(i8),
+            "enq_recv": cand.recv.to(n_dt), "enq_addr": cand.addr.to(a_dt),
+            # phase-2 fetch latch; issue = this fetch opened a wait
+            "fetch": fetch, "issue": f_upd["wait_set"],
+            "op": l_op.to(i8), "addr": l_addr.to(a_dt), "value": l_val,
+            # wait cleared this cycle (span end)
+            "unblocked": m_stats["unblocked"],
+        }
+        if with_obs:
+            # an instruction retires at its fetch (hit) or at its
+            # unblock (fill); obs_val is the retiring node's own cached
+            # value of the in-flight address after this cycle, -1 where
+            # the line is absent or INVALID
+            ci = codec.cache_index(cfg, cur_addr).to(torch.int64)
+            ledger["obs_retire"] = ((fetch & ~f_upd["wait_set"])
+                                    | m_stats["unblocked"])
+            ledger["obs_val"] = torch.where(
+                (cache_addr[rows, ci] == cur_addr)
+                & (cache_state[rows, ci] != int(CacheState.INVALID)),
+                cache_val[rows, ci], -1).to(torch.int16)
+        out += (ledger,)
+    if with_profile:
+        out += (prof,)
+    return out
+
+
+def _fan_hist(fan: torch.Tensor) -> torch.Tensor:
+    """[FANOUT_BUCKETS] power-of-two histogram of the broadcasting homes'
+    fan-outs; fan-out 0 records nothing."""
+    fb = (floor_log2(fan.clamp(min=1)) + 1).clamp(1, FANOUT_BUCKETS - 1)
+    bins = torch.arange(FANOUT_BUCKETS, dtype=I32, device=fan.device)
+    return ((bins[:, None] == fb[None, :])
+            & (fan > 0)[None, :]).sum(1, dtype=I32)
+
+
+def _profile_update(cfg: SystemConfig, state: SimState, prof: dict, rows,
+                    mv, m_cand, f_stats, unblocked, fetch, l_addr,
+                    cache_addr, kill_live, h) -> None:
+    """This cycle's coherence-profile counts, added into ``prof`` in
+    place (JAX ``ops/step.py:449-555``). Every scatter of JAX's drops
+    its masked lanes; here a masked lane adds 0 at a clipped index."""
+    N, C = cfg.num_nodes, cfg.cache_size
+    A = profile_space(cfg)
+    i64 = torch.int64
+    issued = f_stats["issued"]
+    rh, wh = f_stats["read_hits"], f_stats["write_hits"]
+    rm, wm = f_stats["read_misses"], f_stats["write_misses"]
+    upg = f_stats["upgrades"]
+    miss = rm | wm
+    r64 = rows.to(i64)
+    addr_f = l_addr.clamp(0, A - 1).to(i64)
+    # miss taxonomy against the pre-commit tags (state.cache_*): tag
+    # matches but INVALID -> coherence; no match and never fetched ->
+    # cold; otherwise a conflict eviction
+    ci_f = codec.cache_index(cfg, l_addr).clamp(0, C - 1).to(i64)
+    tag_f = state.cache_addr[r64, ci_f]
+    st_f = state.cache_state[r64, ci_f]
+    coh = miss & (tag_f == l_addr) & (st_f == int(CacheState.INVALID))
+    seen = prof["ever"][r64, addr_f]
+    cold = miss & ~coh & ~seen
+    conf = miss & ~coh & seen
+    classes = torch.stack([cold, conf, coh, upg], dim=1).to(I32)   # [N, 4]
+    flat = r64 * A + addr_f
+    prof["rd"].view(-1).index_add_(0, flat, (rh | rm).to(I32))
+    prof["wr"].view(-1).index_add_(0, flat, (wh | wm).to(I32))
+    prof["ever"][r64, addr_f] = seen | issued
+    prof["miss_node"] += classes
+    prof["miss_addr"].index_add_(0, addr_f, classes)
+
+    if kill_live is not None:
+        # scatter mode: victims and fan-out from this cycle's kill plane
+        live = kill_live.reshape(-1).to(I32)
+        prof["inv_addr"].index_add_(
+            0, cache_addr.clamp(0, A - 1).reshape(-1).to(i64), live)
+        fan = torch.zeros(N, dtype=I32, device=rows.device)
+        fan.index_add_(0, h.reshape(-1).to(i64), live)
+        prof["inv_fanout"] += _fan_hist(fan)
+    else:
+        # mailbox mode: victims where the INV dequeues on a matching
+        # tag; fan-out at the home that emitted the INV slots
+        ci_m = codec.cache_index(cfg, mv.addr).clamp(0, C - 1).to(i64)
+        deq_inv = (mv.has_msg & (mv.type == int(Msg.INV))
+                   & (state.cache_addr[r64, ci_m] == mv.addr))
+        prof["inv_addr"].index_add_(0, mv.addr.clamp(0, A - 1).to(i64),
+                                    deq_inv.to(I32))
+        sent = m_cand["inv"][0] == int(Msg.INV)                    # [N, N]
+        prof["inv_fanout"] += _fan_hist(sent.sum(1, dtype=I32))
+
+    # dirty writebacks, counted once at the home's dequeue
+    wb = (mv.has_msg
+          & ((mv.type == int(Msg.FLUSH)) | (mv.type == int(Msg.FLUSH_INVACK))
+             | (mv.type == int(Msg.EVICT_MODIFIED)))
+          & (codec.home_node(cfg, mv.addr) == rows))
+    prof["wb_addr"].index_add_(0, mv.addr.clamp(0, A - 1).to(i64),
+                               wb.to(I32))
+
+    # ownership migration: a retiring WRITE on an address whose previous
+    # retiring writer was another node; lowest node id wins a collision
+    w_ret = (wh & ~upg) | (unblocked & (state.cur_op == int(Op.WRITE)))
+    w_a = torch.where(fetch, l_addr, state.cur_addr).clamp(0, A - 1)
+    w_a = w_a.to(i64)
+    prev = prof["last_writer"][w_a]
+    mig = w_ret & (prev >= 0) & (prev != rows)
+    prof["mig_addr"].index_add_(0, w_a, mig.to(I32))
+    cand_w = torch.full((A + 1,), INT32_MAX, dtype=I32, device=rows.device)
+    cand_w.scatter_reduce_(0, torch.where(w_ret, w_a, A), rows, "amin")
+    cand_w = cand_w[:A]
+    prof["last_writer"].copy_(torch.where(cand_w != INT32_MAX, cand_w,
+                                          prof["last_writer"]))
 
 
 def assemble_candidates(cfg: SystemConfig, mv, m_cand, f_req,
@@ -263,6 +498,72 @@ def run_cycles_traced(cfg: SystemConfig, state: SimState, num_cycles: int,
         return state, {k: v.new_empty((0, N)) for k, v in ev.items()}
     return state, {k: torch.stack([ev[k] for ev in per_cycle])
                    for k in per_cycle[0]}
+
+
+def _stack(samples: list, empty: dict) -> dict:
+    """Per-cycle sample dicts stacked into [T, ...] tensors; ``empty``
+    (one sample) gives the shapes and dtypes when T is 0."""
+    if not samples:
+        return {k: v.new_empty((0,) + tuple(v.shape))
+                for k, v in empty.items()}
+    return {k: torch.stack([x[k] for x in samples]) for k in samples[0]}
+
+
+def run_cycles_telemetry(cfg: SystemConfig, state: SimState,
+                         num_cycles: int, message_phase=None,
+                         with_ledger: bool = False):
+    """Run ``num_cycles`` cycles collecting the per-cycle telemetry
+    (JAX ``ops/step.py:706``): (state, telem) with telem a dict of
+    [num_cycles, ...] tensors (``cycle``'s with_telemetry contract), the
+    series behind ``stats --timeseries`` and ``obs/timeseries.py``.
+    ``with_ledger=True`` also stacks the message ledger: (state, telem,
+    ledger). ``message_phase`` is ``cycle``'s handler-phase override."""
+    tel, led = [], []
+    for _ in range(num_cycles):
+        out = cycle(cfg, state, with_telemetry=True,
+                    with_ledger=with_ledger, message_phase=message_phase)
+        state = out[0]
+        tel.append(out[1])
+        if with_ledger:
+            led.append(out[2])
+    if not tel:
+        probe = cycle(cfg, state, with_telemetry=True,
+                      with_ledger=with_ledger, message_phase=message_phase)
+    telem = _stack(tel, None if tel else probe[1])
+    if with_ledger:
+        return state, telem, _stack(led, None if led else probe[2])
+    return state, telem
+
+
+def run_cycles_ledger(cfg: SystemConfig, state: SimState, num_cycles: int,
+                      message_phase=None, with_obs: bool = False):
+    """Run ``num_cycles`` cycles collecting only the message ledger (JAX
+    ``ops/step.py:750``): (state, ledger), the samples bit-identical to
+    ``run_cycles_telemetry(..., with_ledger=True)``'s. ``with_obs=True``
+    adds LEDGER_OBS_FIELDS (the axiomatic checker's retire record)."""
+    led = []
+    for _ in range(num_cycles):
+        state, sample = cycle(cfg, state, with_ledger=True,
+                              with_obs=with_obs,
+                              message_phase=message_phase)
+        led.append(sample)
+    if not led:
+        probe = cycle(cfg, state, with_ledger=True, with_obs=with_obs,
+                      message_phase=message_phase)[1]
+    return state, _stack(led, None if led else probe)
+
+
+def run_cycles_profile(cfg: SystemConfig, state: SimState, num_cycles: int,
+                       message_phase=None):
+    """Run ``num_cycles`` cycles accumulating the coherence-profile planes
+    (JAX ``ops/step.py:789``): (state, prof), prof a ``profile_zeros``
+    dict on the state's device after accumulation. The planes ride the
+    carry, so the capture's memory is independent of the run length."""
+    prof = profile_zeros(cfg, state.device)
+    for _ in range(num_cycles):
+        state, prof = cycle(cfg, state, message_phase=message_phase,
+                            with_profile=True, prof=prof)
+    return state, prof
 
 
 def run_chunked_to_quiescence(cfg: SystemConfig, state: SimState,

@@ -42,8 +42,12 @@ Seed ensembles (``make_ensemble``, ``run_ensemble_to_quiescence``)
 stack R machines on a leading axis. On a procedural config that the
 fused round kernels take, an ensemble round is one launch of the
 kernel's replica axis for all R machines; every other config steps each
-replica through ``round_step``. The profiling runner is a later slice of
-the port.
+replica through ``round_step``. ``run_sync_profile`` (JAX
+``ops/sync_engine.py:1376``) folds the rounds' retirement records into
+per-(node, address) read and write planes for the coherence profiler;
+it steps ``round_step(..., with_events=True)``, which takes the plain
+rounds on every device, as in JAX (no fused round takes the event
+record).
 """
 
 from __future__ import annotations
@@ -1227,6 +1231,37 @@ def run_sync_to_quiescence(cfg: SystemConfig, st: SyncState,
             st = round_step(cfg, st, fold_impl)
         r += chunk
     return st
+
+
+def run_sync_profile(cfg: SystemConfig, st: SyncState, n: int):
+    """Run n rounds accumulating per-(node, address) retired-access
+    planes for the coherence profiler (``obs/cohprof.py``; JAX
+    ``ops/sync_engine.py:1376``).
+
+    Returns ``(state, rd, wr)`` with rd/wr [N, N << block_bits] int32:
+    the retired READs and WRITEs of each round's retirement record. The
+    planes ride the carry (one flat [N * A] plane each, added into in
+    place), so the capture's memory is independent of n; a lane that
+    did not retire adds 0 at its clipped address. The rounds are
+    ``round_step(..., with_events=True)``: the plain rounds, never a
+    fused round kernel, on every device (as the JAX runner's)."""
+    _assert_round_budget(cfg, st.round, n)
+    N = cfg.num_nodes
+    A = N << cfg.block_bits
+    dev = st.cache_addr.device
+    rows = torch.arange(N, dtype=torch.int64, device=dev)
+    rd = torch.zeros(N * A, dtype=I32, device=dev)
+    wr = torch.zeros(N * A, dtype=I32, device=dev)
+    for _ in range(n):
+        st, ev = round_step(cfg, st, with_events=True)
+        ret = ev["retired"]                                   # [N, W]
+        flat = (rows[:, None] * A
+                + ev["addr"].clamp(0, A - 1).to(torch.int64)).reshape(-1)
+        rd.index_add_(0, flat, (ret & (ev["op"] == int(Op.READ)))
+                      .reshape(-1).to(I32))
+        wr.index_add_(0, flat, (ret & (ev["op"] == int(Op.WRITE)))
+                      .reshape(-1).to(I32))
+    return st, rd.reshape(N, A), wr.reshape(N, A)
 
 
 # -- ensembles ---------------------------------------------------------------
