@@ -64,15 +64,18 @@ Phases (each prints its own line; any failure exits non-zero):
    their time, bound, ptxas and shared-memory figures; 256 nodes x 64
    rounds through the kernels on the card against the plain rounds on
    the CPU; then ``TransactionalSystem.procedural`` at the sync bench
-   defaults (4096 nodes x 4096 instructions, chunk 64) to quiescence, at
-   txn_width 3 on three routes, the fused round (sync_multi_round ==
-   rounds, window and replay 0), the window kernels around the eager
-   round middle (window == replay == rounds) and the plain rounds, and
-   at txn_width 1 on three routes, the fused round (sync_round ==
-   rounds, sync_burst 0), the burst kernel inside the eager round
-   (sync_burst == rounds) and the plain rounds, each with a
-   torch.profiler window (device launches, busy ms and idle share a
-   round): equal rounds and states, every instruction retired; 4 rounds
+   defaults (4096 nodes x 4096 instructions, chunk 64), at txn_width 3 on
+   three routes, the fused round to quiescence (sync_multi_round ==
+   rounds, window and replay 0, every instruction retired), and for
+   SYNC_ROUTE_ROUNDS rounds the window kernels around the eager round
+   middle (window == replay == rounds) and the plain rounds, and at
+   txn_width 1 on three routes, the fused round to quiescence
+   (sync_round == rounds, sync_burst 0), and for SYNC_ROUTE_ROUNDS rounds
+   the burst kernel inside the eager round (sync_burst == rounds) and the
+   plain rounds, each with a torch.profiler window (device launches, busy
+   ms and idle share a round): the fused round's final state equal to
+   the plain rounds' at quiescence (SYNC_REFERENCE), the cut routes
+   equal to the fused round after as many rounds; 4 rounds
    at 1048576 nodes (txn_width 2) through the fused round against the
    plain rounds; 8 rounds of the 4096-node txn_width 3 machine on stored
    traces made from a seed, card against CPU;
@@ -104,13 +107,15 @@ Phases (each prints its own line; any failure exits non-zero):
    ``CoherenceSystem.from_workload`` at the async bench defaults (4096
    nodes, queue capacity 64, scatter INV, locality 0.8, chunk 64) with
    the trace cut from 4096 to 512 instructions a node, to quiescence
-   three ways (plain ``mailbox.deliver``, routed through the ring kernel
-   at D = 4, routed through all_to_all at D = 4): equal cycles and
-   states, every instruction retired, no drops, the final state equal
-   to the JAX package's (its digest and invariant counts, recorded by
-   scripts/async_reference.py: the workload is racy, so both invariant
-   tiers have counts there, the same on both sides), ring launches ==
-   cycles on the rdma run and 0 on the others; the JAX bench's default
+   through plain ``mailbox.deliver`` (every instruction retired, no
+   drops, the final state equal to the JAX package's: its digest and
+   invariant counts, recorded by scripts/async_reference.py; the
+   workload is racy, so both invariant tiers have counts there, the same
+   on both sides), routed through the ring kernel at D = 4 to
+   quiescence (the same final state, ring launches == cycles), and for
+   ASYNC["route_cycles"] cycles through all_to_all at D = 4, equal to
+   plain delivery after as many cycles (no kernel launched); the JAX
+   bench's default
    async workload, ``uniform`` (drawn through the threefry kernel, equal
    to the JAX package's draw), to quiescence, and with fault injection
    (drop_prob 0.01) for 512 cycles: ms/cycle, threefry launches (two a
@@ -120,11 +125,11 @@ Phases (each prints its own line; any failure exits non-zero):
 10. the port's CLI (``cli.main`` in this process, no ``--cpu``): the
    bench's cells at full width (sync@4096 x 4096 at txn_width 3 /
    drain_depth 4 and txn_width 1 / drain_depth 16, deep@4096 x 4096 at
-   deep_slots 3, async@4096 x 512 ``uniform`` at queue capacity 64),
+   deep_slots 3, async@4096 x 256 ``uniform`` at queue capacity 64),
    each with --check --metrics: the check's exit and line equal to the
    library's check of the same config run through the library in this
-   process (the async engine's engine tier trips on that racy traffic,
-   exit 3 in the JAX package too; that run is made again without
+   process (where the async engine's engine tier trips on the racy
+   traffic, exit 3 in the JAX package too, that run is made again without
    --check), every document valid, equal to the library run's, every
    instruction retired, sync_multi_round / sync_round / round launched
    once a round and threefry on the async run; the same runs at 256
@@ -150,7 +155,32 @@ Phases (each prints its own line; any failure exits non-zero):
    exit codes, stdout (``extra.phases`` by its names and counts),
    stderr and files equal. The --cpu runs and the two 4096 profiles
    run in child processes beside the card runs of this process; the
-   phase prints its time.
+   phase prints its time;
+12. serving (``serve``, slice 12; sizes in SERVE): 16 jobs of
+   ``serve.mixed_jobs`` at 32 nodes x 32 through 8 slots, chunk 32, on
+   the card under a VirtualClock: every leaf of every extracted job
+   equal to the job run alone on the card (``exact_solo``, in child
+   processes), the serve doc and the ``--out-dir`` files equal to the
+   same run with --cpu (a child process), byte for byte; a mid-wave
+   ``set_state`` swap leaves the neighbours' leaves equal to an
+   unswapped batch's; the serving run through the port's bench (``bench
+   --serve``: the JAX mix and queue rule, 512 jobs through 256 slots,
+   one warm pass and the median of 2, a torch.profiler window of wave
+   cycles beside solo cycles): jobs/sec, waves, padding_waste, ms and
+   device launches a wave cycle, threefry launches (the warm pass draws
+   the traces, the timed passes reuse them: 0), peak device memory,
+   every job's digest equal to SERVE_REFERENCE (the JAX package's serve
+   on the CPU); the same figures for one slot over the mix's first four
+   jobs (``--serve-no-warm``: the run drew their traces); the daemon (``cache-sim-torch daemon`` in
+   a child process on a unix socket, both lanes) under an open-loop
+   ``soak_daemon`` stream of two job shapes: every result's digest equal
+   to SERVE_REFERENCE, ``stats`` and ``top`` documents valid, the
+   client-observed p50/p95/p99, rejections and bucket growths, drained
+   and shut down.
+
+Each phase's seconds are printed after the last phase.
+``python3 chip_smoke.py --serve-run 1024`` runs only the serving run,
+at the JAX ``--serve`` mix's 1024 jobs and the median of 3.
 
 The line before the last is the card's name and power limit as
 nvidia-smi reports them; before it, one JSON object with a row per
@@ -1068,19 +1098,6 @@ def _stored_traces(cfg, seed: int):
             np.full((N,), T, np.int32))
 
 
-def _step_route(step):
-    """``run`` for ``_drive``: ``step`` round after round to quiescence,
-    as ``run_sync_to_quiescence`` runs them (quiescence tested between
-    chunk-round blocks)."""
-    def run(sys0):
-        st = sys0.state
-        while not bool(st.quiescent()):
-            for _ in range(BENCH["chunk"]):
-                st = step(st)
-        return dataclasses.replace(sys0, state=st)
-    return run
-
-
 #: the profiler window of a fused sync route, long enough that the kernel
 #: events the profiler misses near a window's edges do not matter (32
 #: rounds of the fused txn_width 1 route, about 6 ms under the profiler,
@@ -1090,18 +1107,52 @@ def _step_route(step):
 #: theirs is shorter
 PROFILE_ROUNDS = {"fused round": 128, "other": 16}
 
+#: the depth of the two sync routes held to the fused round: the eager
+#: round around the TPU kernels' counterparts and the plain rounds run
+#: this many rounds (cut from quiescence, 1600 rounds at txn_width 3 and
+#: 3776 at txn_width 1, for the serve phase's time) and end equal to the
+#: fused round after as many rounds
+SYNC_ROUTE_ROUNDS = 200
+#: the plain rounds' final state at quiescence of each txn_width's run
+#: (sync@4096 x 4096, chunk 64), as printed by ``scripts/sync_reference.py``
+#: (defaults) on an H100: rounds, retired instructions and
+#: ``convert.leaves_digest`` of the leaves. The fused round's run to
+#: quiescence must end there. The script's plain rounds are held to the
+#: JAX package by tests/test_torch_sync_reference.py at 64 nodes.
+SYNC_REFERENCE = {
+    3: {"rounds": 1600, "instrs_retired": 16777216,
+        "digest": ("027873e473b750f981a2612fc2855950"
+                   "7992a1c275d70954e2a1aafe85daa2a3")},
+    1: {"rounds": 3776, "instrs_retired": 16777216,
+        "digest": ("b5685de82e32e64f75ec0c71f7547172"
+                   "1e85a3aac8da878544c9e4af655f3cad")},
+}
+
+
+def _fixed_route(step, rounds: int):
+    """``run`` for ``_drive``: ``step`` round after round, ``rounds``
+    rounds, no host read."""
+    def run(sys0):
+        st = sys0.state
+        for _ in range(rounds):
+            st = step(st)
+        return dataclasses.replace(sys0, state=st)
+    return run
+
 
 def _sync_routes(rows: dict, txn_width: int) -> None:
-    """sync@4096 x 4096 to quiescence on three routes, in one process:
-    the fused round (one kernel a round, the bench's route on a card),
-    the eager round around the TPU kernels' counterparts (at txn_width
-    1 the burst kernel, ``_round_step_single(use_kernel=True)``; else the
-    window and replay kernels, ``round_step_multi_kernel``), and the
-    plain rounds. Each run's launch counts are set to 0 just before it
-    and read just after, and give its kernels' rows their launches; each
-    route's torch.profiler window (PROFILE_ROUNDS, 16 rounds in) gives
-    its device launches, busy ms and idle share a round, and how many
-    launches of the route's kernels the profiler saw."""
+    """sync@4096 x 4096 on three routes, in one process: the fused round
+    (one kernel a round, the bench's route on a card) to quiescence, and
+    for SYNC_ROUTE_ROUNDS rounds the eager round around the TPU kernels'
+    counterparts (at txn_width 1 the burst kernel,
+    ``_round_step_single(use_kernel=True)``; else the window and replay
+    kernels, ``round_step_multi_kernel``) and the plain rounds, each
+    equal to the fused round after as many rounds. Each run's launch
+    counts are set to 0 just before it and read just after, and give its
+    kernels' rows their launches; each route's torch.profiler window
+    (PROFILE_ROUNDS, 16 rounds in) gives its device launches, busy ms and
+    idle share a round, and how many launches of the route's kernels the
+    profiler saw."""
     from ue22cs343bb1_openmp_assignment_tpu_torch import bench, convert
     from ue22cs343bb1_openmp_assignment_tpu_torch.ops import sync_engine as se
     from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
@@ -1119,12 +1170,14 @@ def _sync_routes(rows: dict, txn_width: int) -> None:
 
         def eager_step(st):
             return swk.round_step_multi_kernel(fused, st)
+    R = SYNC_ROUTE_ROUNDS
     routes = {
         "fused round": (fused, lambda s: s.run(chunk=BENCH["chunk"]),
                         lambda st: se.round_step(fused, st),
                         ("sync_round" if K == 1 else "sync_multi_round",)),
-        eager: (fused, _step_route(eager_step), eager_step, eager_kernels),
-        "plain rounds": (plain, lambda s: s.run(chunk=BENCH["chunk"]),
+        eager: (fused, _fixed_route(eager_step, R), eager_step,
+                eager_kernels),
+        "plain rounds": (plain, lambda s: s.run_rounds(R),
                          lambda st: se.round_step(plain, st), ())}
     mid = se.run_rounds(plain, se.procedural_state(plain, length,
                                                    device="cuda"), 16)
@@ -1132,12 +1185,15 @@ def _sync_routes(rows: dict, txn_width: int) -> None:
     for route, (cfg, run, step, mine) in routes.items():
         done, wall, counts = _drive(cfg, run)
         m = done.metrics
-        if not done.quiescent:
+        if route == "fused round" and not done.quiescent:
             raise SmokeFailure(f"sync@{N} txn_width {K} ({route}) did not "
                                "reach quiescence")
-        if m["instrs_retired"] != N * length:
+        if route == "fused round" and m["instrs_retired"] != N * length:
             raise SmokeFailure(f"retired {m['instrs_retired']} of "
                                f"{N * length}")
+        if route != "fused round" and m["rounds"] != R:
+            raise SmokeFailure(f"sync txn_width {K} ({route}): "
+                               f"{m['rounds']} rounds, want {R}")
         inv = done.check_invariants()
         for kernel, n in counts.items():
             want = m["rounds"] if kernel in mine else 0
@@ -1148,14 +1204,23 @@ def _sync_routes(rows: dict, txn_width: int) -> None:
                     f"{want}")
             if kernel in mine:
                 rows[kernel]["launches"] = n
+        finals[route] = (m["rounds"], convert.to_numpy(done.state))
+        if route == "fused round":
+            got = {"rounds": m["rounds"],
+                   "instrs_retired": m["instrs_retired"],
+                   "digest": convert.leaves_digest(finals[route][1])}
+            if got != SYNC_REFERENCE[K]:
+                raise SmokeFailure(f"sync@{N} txn_width {K} ({route}): "
+                                   f"{got} at quiescence, the plain rounds' "
+                                   f"{SYNC_REFERENCE[K]}")
         rounds = PROFILE_ROUNDS.get(route, PROFILE_ROUNDS["other"])
         prof = bench.profile_steps(step, mid, rounds)
         seen = "".join(
             f" ({prof['kernel_calls_per_round'].get(k, 0) * rounds:.0f}"
             f" of the {k} kernel seen)" for k in mine)
-        finals[route] = (m["rounds"], convert.to_numpy(done.state))
         say("main", f"sync@{N} x {length}, txn_width {K}, drain_depth "
-            f"{cfg.drain_depth}, through the {route}: quiescent after "
+            f"{cfg.drain_depth}, through the {route}: "
+            f"{'quiescent after' if route == 'fused round' else 'cut at'} "
             f"{m['rounds']} rounds, {m['instrs_retired'] / wall:.6g} "
             f"instrs/sec, {wall * 1e3 / m['rounds']:.4f} ms/round, wall "
             f"{wall:.2f} s, launches "
@@ -1167,16 +1232,21 @@ def _sync_routes(rows: dict, txn_width: int) -> None:
             f"{prof['device_idle_share']:.3f}, "
             f"{prof['wall_ms_per_round']:.4f} ms/round under the profiler, "
             f"kernels {prof['kernel_ms_per_round']}")
-    (r0, a) = finals["fused round"]
+    r0 = finals["fused round"][0]
+    cut, _, _ = _drive(fused, lambda s: s.run_rounds(R))
+    a = convert.to_numpy(cut.state)
     for route in (eager, "plain rounds"):
         r1, b = finals[route]
         bad = _leaves_differ(a, b)
-        if r0 != r1 or bad:
-            raise SmokeFailure(f"sync txn_width {K}: the fused round ({r0} "
-                               f"rounds) and the {route} ({r1}) end in "
-                               f"different states (leaf {bad})")
-    say("main", f"sync txn_width {K}: fused round, {eager} and plain "
-        f"rounds, same {r0} rounds, every leaf equal")
+        if bad:
+            raise SmokeFailure(f"sync txn_width {K}: the fused round and "
+                               f"the {route} after {r1} rounds differ "
+                               f"(leaf {bad})")
+    say("main", f"sync txn_width {K}: the fused round quiescent after "
+        f"{r0} rounds, its final state the plain rounds' at quiescence "
+        f"(SYNC_REFERENCE, digest {SYNC_REFERENCE[K]['digest'][:16]}); the "
+        f"{eager} and the plain rounds after {R} rounds equal to the fused "
+        f"round's {R}, every leaf")
 
 
 def phase_sync_main_path(rows: dict) -> None:
@@ -1512,8 +1582,10 @@ def phase_ensembles(rows: dict) -> None:
 # -- the message-level engine and its routed delivery ----------------------
 
 #: the async main path: the bench's 4096 nodes, its trace cut to 512
-#: instructions a node for time (the bench runs 4096)
-ASYNC = dict(num_nodes=4096, trace_len=512, chunk=64, shards=4)
+#: instructions a node for time (the bench runs 4096); the all_to_all
+#: route runs ``route_cycles`` cycles (cut from quiescence for time)
+ASYNC = dict(num_nodes=4096, trace_len=512, chunk=64, shards=4,
+             route_cycles=512)
 #: the JAX package's final state of that run on the CPU, as printed by
 #: ``scripts/async_reference.py`` (defaults): its cycles, its nonzero
 #: invariant counts and ``convert.leaves_digest`` of its leaves
@@ -1722,19 +1794,44 @@ def phase_async_card_vs_cpu() -> None:
 
 
 def phase_async_main_path(rows: dict) -> None:
+    """async@4096 x 512 through plain delivery and through the ring
+    kernel at D = 4 to quiescence, each equal to the JAX package's run
+    (ASYNC_REFERENCE); all_to_all at D = 4 for ASYNC["route_cycles"]
+    cycles (cut from quiescence for time), equal to plain delivery after
+    as many cycles."""
     from ue22cs343bb1_openmp_assignment_tpu_torch import convert
     from ue22cs343bb1_openmp_assignment_tpu_torch.ops import invariants
     N, length, D = ASYNC["num_nodes"], ASYNC["trace_len"], ASYNC["shards"]
+    C = ASYNC["route_cycles"]
     cfg = async_cfg(N, length)
-    finals = {}
     for shards, transport in ((1, "none"), (D, "rdma"), (D, "all_to_all")):
+        cut = transport == "all_to_all"
         done, wall, counts = _async_run(
             cfg, async_system(cfg, "cuda"), shards,
             transport if shards > 1 else "rdma", ASYNC["chunk"],
-            200 * length)
+            C if cut else 200 * length)
         m = done.metrics
         route = ("plain mailbox.deliver" if shards == 1 else
                  f"routed {transport} at D={shards}")
+        want_ring = m["cycles"] if transport == "rdma" else 0
+        for kernel, n in counts.items():
+            if n != (want_ring if kernel == "ring" else 0):
+                raise SmokeFailure(f"async@{N} ({route}): {n} launches of "
+                                   f"the {kernel} kernel in {m['cycles']} "
+                                   "cycles")
+        if transport == "rdma":
+            rows["ring"]["launches"] = counts["ring"]
+        if cut:
+            if m["cycles"] != C:
+                raise SmokeFailure(f"async@{N} ({route}): {m['cycles']} "
+                                   f"cycles, want {C}")
+            routed = convert.sim_numpy_leaves(done.state)
+            say("main", f"async@{N} x {length}, chunk {ASYNC['chunk']}, "
+                f"through {route}: cut at {m['cycles']} cycles, "
+                f"{wall * 1e3 / m['cycles']:.4f} ms/cycle, wall "
+                f"{wall:.2f} s, ring launches {counts['ring']}, retired "
+                f"{m['instrs_retired']}, dropped {m['msgs_dropped']}")
+            continue
         if not done.quiescent:
             raise SmokeFailure(f"async@{N} ({route}) did not reach "
                                "quiescence")
@@ -1752,16 +1849,6 @@ def phase_async_main_path(rows: dict) -> None:
         if got != ASYNC_REFERENCE:
             raise SmokeFailure(f"async@{N} ({route}) differs from the JAX "
                                f"package's run: {got} vs {ASYNC_REFERENCE}")
-        want_ring = m["cycles"] if transport == "rdma" else 0
-        for kernel, n in counts.items():
-            if n != (want_ring if kernel == "ring" else 0):
-                raise SmokeFailure(f"async@{N} ({route}): {n} launches of "
-                                   f"the {kernel} kernel in {m['cycles']} "
-                                   "cycles")
-        if transport == "rdma":
-            rows["ring"]["launches"] = counts["ring"]
-        finals[transport] = (m["cycles"], convert.sim_numpy_leaves(
-            done.state))
         say("main", f"async@{N} x {length} (trace cut from the bench's "
             f"4096 for time), queue capacity {cfg.queue_capacity}, scatter "
             f"INV, chunk {ASYNC['chunk']}, through {route}: quiescent after "
@@ -1771,16 +1858,14 @@ def phase_async_main_path(rows: dict) -> None:
             f"{m['msgs_dropped']}; final state equal to the JAX package's "
             f"(digest {digest[:16]}, invariant counts {step_v} and "
             f"{coherence}: the racy workload's, as in JAX)")
-    (c0, a) = finals["none"]
-    for transport in ("rdma", "all_to_all"):
-        c1, b = finals[transport]
-        bad = _leaves_differ(a, b)
-        if c0 != c1 or bad:
-            raise SmokeFailure(f"async@{N}: {transport} ({c1} cycles) and "
-                               f"plain delivery ({c0}) end in different "
-                               f"states (leaf {bad})")
-    say("main", f"async@{N}: plain, rdma and all_to_all delivery, same "
-        f"{c0} cycles, every leaf equal")
+    plain, _, _ = _async_run(cfg, async_system(cfg, "cuda"), 1, "rdma",
+                             ASYNC["chunk"], C)
+    bad = _leaves_differ(convert.sim_numpy_leaves(plain.state), routed)
+    if bad:
+        raise SmokeFailure(f"async@{N}: all_to_all and plain delivery "
+                           f"after {C} cycles differ (leaf {bad})")
+    say("main", f"async@{N}: all_to_all delivery after {C} cycles equal to "
+        f"plain delivery's {C}, every leaf")
 
 
 # -- the threefry twin of jax.random (slice 9) -------------------------------
@@ -2104,9 +2189,10 @@ CLI_RUNS = {
     "async uniform": (["--workload", "uniform", "--queue-capacity", "64"],
                       "threefry"),
 }
-#: full width: 4096 nodes x 4096 instructions (async 512); card against
-#: CPU: 256 nodes x 128 (the CPU's plain deep round takes ~0.3 s)
-CLI = dict(nodes=4096, trace_len=4096, async_trace_len=512, small_nodes=256,
+#: full width: 4096 nodes x 4096 instructions (async 256: cut from 512
+#: for the serve phase's time); card against CPU: 256 nodes x 128 (the
+#: CPU's plain deep round takes ~0.3 s)
+CLI = dict(nodes=4096, trace_len=4096, async_trace_len=256, small_nodes=256,
            small_trace_len=128)
 
 
@@ -2752,6 +2838,834 @@ def phase_obs(card: str) -> None:
     say("obs", f"obs phase took {time.perf_counter() - t0:.1f} s")
 
 
+#: The JAX package's per-job results of the serving runs (``serve``
+#: phase), printed by ``scripts/serve_reference.py`` (defaults): for
+#: each job shape, the first ``hex`` hex digits of
+#: ``serve.job_digest`` (sha256 of the job's dumps and metrics doc) of
+#: ``serve.mixed_jobs(jobs, nodes=n, trace_len=n)``, job after job.
+#: Held to the JAX package by tests/test_torch_serve.py.
+SERVE_REFERENCE = {
+    "hex": 12,
+    "jobs": {"32x32": 1024, "16x16": 640},
+    "32x32": (
+        "6c123a336ff0bcc2bb6121499adb33e419257f917fb2457ac9e5e0b028ea"
+        "054b8cca18b725a68bc1ba3c367f2f85f21ce98766a1f5bb8602c6a488c0"
+        "abd08161b0532dd1e1448e7a31077eba6575b8f2a06f62c7106d7486b50e"
+        "2a231a7703dddfd2a1acaade5a97d99963fbc2104e3bea471f414d217a03"
+        "baa0bc6d081d8c208748618a86877b9dc21343663991ab7699ef83f4739d"
+        "513a9375f5e8f7c4a76b84745ebc946078f0bfe6e538512893c9113dfce8"
+        "5aaca8edf653477132af4303991a28b7227ec98ec1e6141c9828528e08f8"
+        "750c7ee9128eba008e750db48504b45d64c3fdc75b0f99e60010b574d28c"
+        "2c9061c54350897c37945821fad03c098d0aa91ea35fd1898bf9d7858b2a"
+        "9aaefde4d5270d4f536d8a33686c74abfee44c590a68a82d6701f42f0586"
+        "02a8e76ea65bf30a66379115eeeac3973a6c578651681616d6254e272615"
+        "0c2f57aa1077b1a774a801f1d2e7bf698525ea7a8417b6a8bc44d2b29c8f"
+        "aa0873a0a7689d1130b7dea8f81cda385f1e10fe57ca4a4f5b9d8c3f0f66"
+        "f6dbdfc4580d4317547b6bc496e2a03c6c6c94c640299df08dd1701533b7"
+        "bb518b20e7f13818c8071ebd0d9a070c08322be6b4351dcab0c6dec0b006"
+        "d4c6476e8f5017ae176467e56fab9b9fe5aeee98692f712d1e17fed8d7cc"
+        "efb6e895529022f735de9b4d0a7424853f2e3452312e76b1aa969c6f6bf8"
+        "89f0aceeb20eda0b2309f5ebd46d9a66a2ff55dde23c610b684ec4ce55cc"
+        "459c5720768bbcae9bb83785ac8ff5a592d45e13817a8ea9589638c9d126"
+        "c9f9974947f7629748fd8e513c168cdd3d4f3877c9eb4cb283efaa71f57c"
+        "87d9e881e9f541699424472a303fe84d27c5227b31a843da36ec4ab3a8bf"
+        "b3ac4569bf81f7064e4fce13fc2de86311558de66fbfe70ce0318ca6f501"
+        "849917fd29136f0b5884dd999b5df451c320f0cda7cddf0e7a242add7417"
+        "64465e3a4a9c4bfa4a63401446bb6266afd06862f22aaac970efc043ae59"
+        "b261e3f7d3f99074f970daa38098017f0b09b93103c4f44251e90c8000ad"
+        "19295b08a30c3967b9260339016888c0e5f52ccafd65ad8948087b3ab05f"
+        "39051059270617872d38c6054127bb2f4c39b23e1a19625b048e3c9771dc"
+        "bfe57a1373281cc94fd55d522b66914f1facda57dd681ef5e40bd5fbe819"
+        "9d437ba97b5f28e66cca0fb09a3e3186d5a2e9bb771ba71c6d91a37e13dd"
+        "c89b46be669c0cd1b211f6767a9f1a0112b7bb3b66ded04d0f7cb7e200c0"
+        "224d442560e5e7b418dc82d8962ddb37eb22f469b9e2d57d13b122bb4576"
+        "43dd8017a91874d6108203688a669158aee956465630363e45ce8787a2fa"
+        "c5e2cb9c89c9e363486f0a378678c7c038abdd04befc01c65db5b3a4a509"
+        "99f0170c08ffd416efb9e5534502272067402240c1e9b016ebfec8a7fd1f"
+        "95d9e5326222800ae4ae1325cb0aba22fba8f379224fbfe0904dfa948bce"
+        "cde6c47ec05477da77ed3c909a853a19b7a7e76b5dbceb5798a840e38c86"
+        "b62c4a88f0c63b73210f4613e95ec089e10363b21cbd729cebbbbf4b34f4"
+        "288b1f6d578d1ec5942e5f0e70381598433893a3c21bc0de50f11c9d5b8a"
+        "dad9c326dc1bc1f1404f0286c737bc946a02df2994317429c5226ef339d4"
+        "774ffa5fd40324928379a8d8379ffd4925e07ed0fc29c0a7831b9a774ffe"
+        "b178e240bc02e67a0fdfa3d202540a85963047b08cf095639936b867574b"
+        "80405b58d437585c591c1f135ed5632c2c91e328fcccdba3cfa52cb1d95f"
+        "cbe66920bc8f9e233a297a396b3928f4519eb3bf23e5c8618dbccf963c7f"
+        "710cf6ab4cbd97769a13dec3618006e0fc2c507eaa5d9df37203bf540d64"
+        "7fc43a165937b46fa122c8b68ef4e02fdcb34734d2e611a7c7add06d2a5f"
+        "ab64ad534a17301f41f738209945c59a2c01f2cce2ee18dc954d5223e5c7"
+        "96dce038969f75d3477127acf538ed2938fcdc5871258fabf52ca0234e18"
+        "709cc7bc10ed363f5ced7d8a8d292e6787c8d313ea3fe0ffb8edd595a0c6"
+        "7d88788937d6f4fc540f616d414c99a0ce3cb851948c912c97fa21f615b2"
+        "fda875f8adcd9df6f3cf83e2fc4fc30274f819a5037ea987581767b6d8e1"
+        "7e7749baaca40be4f465b5c1827ca4084e5f9025353246feb15a3b4f30fe"
+        "8114904fd77b70104f6c0ff5fb601399b6aa30d65ea951034eef04f6ba08"
+        "755624a3dc0cb7d06e902082d67bbfd8d3717ddc852a11e4b86001684355"
+        "de2ceb513da3190d88a821be60468acf62cea0b7b5709575f46673ea4ee2"
+        "f7474222aea39ed5a89e4ea85e431d982fd2b78793cb6bcc975f357c77ed"
+        "e8dc8c91c1a2bb0e130edf7cd85ef0da89c34566daf32e421fe973affd49"
+        "ac0a969e5c0d085a09f9d424644c50ace88c1124eb7838076c8d7cda98d7"
+        "613bb0e50cfc8653ffd388ff9e1e7afed8dbc98d8c83be7934d5dd03d435"
+        "7ad2b7098377c8f82e15bcfcc36532474f5b89fa3c2450e25091fb860a68"
+        "5ec5b60f4dc34dce2f643af8f50893fe93c1081c943b13714c1b9db77c83"
+        "cdf2a476a2889227cc2241e89bbb070bacbff9de665c0f933c6508acda4c"
+        "a520f25e2ab37aa8f1b8e60eb0d71e3767c9b539042139fb0f69e5db301f"
+        "841308d7378d5920cf0de6e177dad11a6f9e7cb865ba7caf0a63036060b3"
+        "451d3e3253f96a3ffad550cd747de372264c549cb0058576b3caa4a96099"
+        "e95232ede94805305dc6cad7d111953a529105fb4ae950055a912809d19d"
+        "5fafa169ca9e9dd22638e1d4c773864b68151295cac62e4ac1358e1c7843"
+        "26d4d12d84d3a76f8c5db354b2d83c161c9c3bfed26ec326dbe96cbbf296"
+        "662340421cfecb87523fc077eea804ef8e261a4c745781158336f93eadad"
+        "d3f85895c1137b80ca770182eff6420fc579f1037163847918f85cb95ba3"
+        "138e292cdb7e82ea5d752188095e992b76a242fbc5ef08be79270e8f7aaf"
+        "78153f146a8edc7e6cbce520e7381f665c8675ec838665c816b7e4afd323"
+        "41ee64778174c8d02b333e3a01a5ea8ea13e08ea3c65ba472232a8d58d41"
+        "517f61c28708a92c453005f04708a55f1ea11f2a49cfc9f727973d51f9a6"
+        "6ebeb24dceb31501e3f04af0f56ccc3ad8a25abafbb403edbaed5845085d"
+        "df4ca54f3ad1ff6beddad6e1a95aed5f76a4940dc893bb2cc1b0808f71be"
+        "6b6de009f830baba9d4db40ebe9b79b59292a75c84c71134cd3244aa8022"
+        "0c80329dffaeaf8d74a33fd6e7bc2ca0db15ceb561783bcac0a69ed57806"
+        "1bbd71f0ba638b0b2dff8b8a47145b9ff7314f470eb0a6f0f29309dab631"
+        "3f9193f7390aa6b3fae1fdf6a3853789933fa29a49fdf8a4dd749b8bfb1f"
+        "6df51f66ccd9c1115de99f0722e1209a12fb91cb76d9472c556f461defe4"
+        "83b705a5ce8092b4d4403bdfa025a4e288d5c980a630ccd47f76e477d7e3"
+        "7df2154ae57ed09a6ebd52a17ca4064fa7c27be3ba6528d709b6044753b3"
+        "8b809ec551fcc5951c70268849ec6268376bf8fb0904f6326ac232d07861"
+        "ea6b4087c5a318223f062eb3e929dcbdddff22a2016f56247060f1cad49a"
+        "49f5f3047d6a5ee231da7938f64c08cb684756c1adac290cc17a717f9ebb"
+        "dd46d201444e24c7af42542c6c206f1b7942bd0b0dac23902a4e47223918"
+        "0a8b492f4c63b7f13f1469cf04e0e882835d3ff595a0832706700f627203"
+        "e9ed48e1d948a27b9258c0470794cbe45f87c596fa9873083ef547f63b12"
+        "23d161dbaef6bad5645327aed18e158948e8e1f80cc26aac81a8c37d227c"
+        "13b5fcb52242cd16483550e3e11cb03a17f25ec19e6efb2629d23f3c8949"
+        "6786afca57de7c3bc2fad7a4592993e4a88a0f9d720b8e32bedfef7c9797"
+        "311d8c03c5f56e7dbecf9c94b2301671b5b7c6194de692444fc96aafeee0"
+        "5265268bcc488894e02ab569b87be2f7ec8591fb94696e27bea8b16f45d8"
+        "35361e300a9db70fd26acaec86a77781ff7def684714e4b96d31c6d6c4d1"
+        "352b4dd67f5616918a50700712cb76171ad7a8c5c484138acdfdbf9e20ea"
+        "19e818269a2762cddbc6229c4ed5c882e13defa442054fada852ebca01a7"
+        "ac873b896087060ca26489b7e5b1eccc35eda987167c818d38f0c35b4413"
+        "8ce8e21f4330f284710be8275856fe397577f5fbab75cd0509ad4785e0cc"
+        "298dec20fc009e29731e584d1069d86dd5954ae19f21fa0fc7c3c35be1b8"
+        "d02ae9e180f4a9955131ebd692e110634a81b5940caf0d519308877b915b"
+        "d1d077b017ceaedd560e8392626a44bcee9ea7b5be41ba6eb4f0afb5a0fe"
+        "9cb14db9dea7331ef26006aff9ebad4ab664f042acae9c20ef47867d82f6"
+        "3fc201f0412ce5a93686ba5652bd1250b7b8c1a518fd7e0a4e5b3364596f"
+        "08fde42dcad3735179705dcc899910f6f4b014e07833b0a35ef934391c3a"
+        "5307f9cdc2878176413f12858f15a4a39400dd38c0b3d0f4e2c0139a758a"
+        "88d9d11829d17a560f762bde653edc13ed56961bf6604a09b89aa537f644"
+        "bca87cc2c773e89d5588fbad672eceac625891c66c8c1210a60c2aba6aca"
+        "268e40d2143033afa70123b920cea66303ca2206915ee35ea09bdbb35b39"
+        "8ca317dc4de7d87c434509158c9875ef58607cc8a6f6f39b506fdda3c02d"
+        "e0e8ae137a90b9693590946c273211c65ee3ac28d546726b38ce61acd877"
+        "0b6095875d242288d419a31f61e0b76894aeec1b8a4739cb46dd18120536"
+        "a52ed8be192498e49f032ae166a00f4dce6e2a7b239bced9bdb6f8422fe6"
+        "8ead61dcb217caa8d057914e341c3813c28bf06465892f1c5244d847e61b"
+        "803edef223a14081005abecd72cc5ffee35176f2ae8a13e31ebbc3a06dd8"
+        "3d908e0b3c81ce59670eb75970d8bb08f80a5ff2c3f859e97371f3753aa8"
+        "7f3080eb500c48b8821b76940624427ff7b75f1411ba8baa1973ab64d35e"
+        "5dcd5941ffb920ddf68f1e0d7aef4bdb909238de892d19bb8fe52dcf1901"
+        "eeb2460303222f39f4b2bd388bfa5f85d8ac388d77ea7e3cffd6b73b5818"
+        "82909545e9cb251131562d3dbeb69d661fa34fba4a4481551dfff1e1d60d"
+        "db1bfb71682d5cb8f99e5ad65b5ee7df081363fb254f85fbcc27633d129a"
+        "885488dd3e2e9e230b7c23e1e094a1c881ef3a497cf9dfddf35ea183a47f"
+        "98a30f6c8d7e623cc9990a091308216060078dd060e25668d6b38a808b4e"
+        "03964766ba2eb6837d6356e3e8036262b21c3aa9a66f111d9e10dc80b71f"
+        "2cfc81a1ab920e011f117de4cc2056566936c1bf9e9f9d9acfc546633dc2"
+        "b37b6021c4c5488453e0fe729b7181e23aebf5488c89670e24fe4fa5c7b4"
+        "e9049623ba6e6a1d6267742482085b093808bff5a587217329e25bfc2feb"
+        "f2aae487767fff3c8d8cfdc075f5264f1102876505f746ff3a0d98da3c44"
+        "2e685c5976b2810095f619f23442848a6b318e414f07ced801aac506846d"
+        "57fffaf650666cc6f5cd5d2ac7854a5e2f563f0044021c6417a7e8d13d9e"
+        "10c763b3db3584438bdf59048d49f41e163be8935db7b53afe98cde56241"
+        "04e6e40726ed6dc1181ff2ebb4bd922f4d8296796848170c96b163a40d2f"
+        "38ce0007364a65903eb3c8e3b9e8cd8f30ade5e39e677c375fe226b9904b"
+        "caf657aeebcf8e774a71ab145d055bd9c1760729344482b1dd2915fbfc41"
+        "90845e3ecdcc4997fdcf311279d958e40d72d46680a346add34de99498cc"
+        "cb015f98496f37188430fe4e6e9807387e0510743d98ffa4f601b6fa959c"
+        "bb586a56783779da7e9e56ce72dcd8854fe14dba75d9d6b665a9b63af2ee"
+        "1c6a3ca069b142fb113eb73274db1e0d3c673ec458ca2a34fdda4b03bb16"
+        "ba7eb54b40b6f10874c9928e98a85b30838ff78a3c684018fae3ce1d9904"
+        "a2b38c8fce4a02e74d424acbe89db2b23aa661840cf088454e4b8498e673"
+        "1511199fc61d4b86196cd36499ffe3d69ae2f53091e86b2304d05072a0a7"
+        "b5f5448735bda4587222b9c0b0c0a2197dd8962374be06d0d143982b3f70"
+        "348f7789d8ddde77c7bf5a7bb2d27dcaed7a5d99d4278329ebb97120fc31"
+        "0bf8ebb8bfbfd37c063ff80c6e5a8b7266ed84b8f9a528761e7f82bcf8cf"
+        "ad143146892c3a2efeec1b89911d1001c72058983cc7ce11510b7a00be55"
+        "b32312053cd0a88cc36107f15a4cece73694bf764f58e04f4e61b8562603"
+        "095e3bf0410338c25d86c097471c6b47696c650c9022a0e4a58b8197d467"
+        "c9b9b86c02a9e432a725608d010a06a60c56b745793e42c01c189210f616"
+        "efa40124b8dfc38b6641dba3cfbdf8b616fdbe252543a80300b88a1c227e"
+        "856fd396db35d7e03078475d66a56e19d46c0928d2886abcc5ec7bf32c32"
+        "1f2aabe539d48a035ff228a611289f239338691210801ab957a900de121b"
+        "06564b6d44646091116c2ab9bc790f1a643f6dc67e2928f72792440bc906"
+        "d9a4e525d829fe0af26fb56292f90511ed504234250b71d5768c226da3cf"
+        "f21530517ebb46343377285eeab5057271335fe4abe094b6e3b4fbdbd480"
+        "abb817de88322ef28857172bcc896ce9b4fb230e7005075e123579f54491"
+        "90dcd56d899aea0d3a31968509ef4129a998aa189c378f39fbb06ace5f06"
+        "626d57959e7385311aa3e04bb8ab131a4600943b0da8df383208367b22fd"
+        "2d57e811a0f244c134d57d713cc299a584ac7b1620e2a41a2b6cc68682a0"
+        "82b7428762b16b59de9e53084f223fc5740626df0fd8dad07f6f234b0fcf"
+        "1372b8c6bceb69bfa1b90236f876d21e9529d7efa66df1914fbeb01badd7"
+        "00f05dd6c05820fa06710998c8cb9543df893bdab1dbe679ccddca93e88c"
+        "53ff78f04ec39b42c70c830a198bd88131eb524b415c1c5c7561643eaad1"
+        "26c4cbf5af955e9148d3472dd10adc4d8b7c93d965bb9be5a8dd1d74f663"
+        "c86bf0f91fdd380f5d44f4da18d49d8e460969771dc200bb9ad00dd16b76"
+        "a74c94948b8e2d1d309ac296a3c219a8e7c2347014dc6c80907bd953c513"
+        "e10e3e6a78824e7f065da3fb51ed00311862fcefa80e7e6ef73784095154"
+        "ca58f24f569c565d34f466b5a479c566bb5a2bbd64e526865516cf009e53"
+        "ab39efcc8ac53c86c6a84ea809260aa0e73b7a50c78a80a82f9f48976836"
+        "c9c3b57c346932995b3983143f9539e552ea4ffa44857d018b6f0c1a4d52"
+        "cbdf4fa424322a2bb11c51c8650fed53092a254f1f27e2e131a08a41f246"
+        "c40730fbb5937195938b80e3a00b97d846c50ef836002e274df6d4ef4088"
+        "d72b16d2caaef7ad747407180671e1bcafc7ac62bdee9074396db7303078"
+        "60ca4f4d55062dd81a209dc6588a04f595080ae82a639fafeb63ff4baf25"
+        "bb1fb32a05c4559f5656d4d52eb933f1693ab1cc0613dac89290270df65e"
+        "42123f993fb20cd9172fbff58d45ee917427873539d414b4b0c233f8ec9a"
+        "5b5b7c2b4ccd46d548bc596df8a0c28450f13dc7ad46b836d34d95b79f5e"
+        "420b97b591505a9cb45ae712ac576d3a24f2b71f65be9d00f41380190fd9"
+        "982762f8090108e671bafbae44461da584ff5eae64f2deab8d27561bca70"
+        "9bdac31573678ee13a988cc88646be193c88c8c9a4613a385b53385faaa3"
+        "b5ddd7f289c1333c35d526598a2c0d71aadb2738ba4ff174059f0c582093"
+        "1dba6b7c85618dde39bbcb580c5fd1a6de580852f6e79371d68ad1ccd9ab"
+        "5d13209b58404f1fba777e4c25b24570dfa5b8d3c8c06164377e77c50ddb"
+        "3e10f694531d377915ed994097d7706b7fd32fd80e18d6e83dc6b0d139ea"
+        "f857a3883dcfed3a029901f61bdbbf3ba286f29471225ead41af94625ed6"
+        "25c0cf5115aa2a4fa3dbbd8c9449692ef30c63e134ca38d5ad962785f9f5"
+        "64afa58530cced916adaee630007d03a272956922e293a38e2b348590f3e"
+        "12cdd5e38e261929ac28903af5026c28de5c62c0f9d5999a0dc815e1fda6"
+        "157c37e618c4125bd0823ed319b5ed4c706ae50cf83cc8bcd48b96f5456c"
+        "922021c387bf8bffda2ed8fb06faf378aa06453de9e9381782d5214228f9"
+        "e9a96196e8d2b47106f8ffd2494bf8566e0963ca8e68040ecb1bf11c6b91"
+        "712e5cd443c6ee60619d2ba6a332cd30df4e584c7907053106e3fd9748cf"
+        "84dc5796c4eb45322c76f3d323b471bb40f683f7181c5a5f11f0db2275fd"
+        "4715192d18c55e9b69dd75bfadb4891e5a1feb3d09a51c4d370b593975a1"
+        "07f14dc775d6d25a36d6125340b876f0c8cb6bb51199068d336aa330f056"
+        "b6a59b65e6a09bfe3fa54663934c240a56725092fd25f89801c3715a85cc"
+        "504f6a6bf99d655ae0ece0d047decd6ee3ced4a99c34edb0f838b15ee319"
+        "dbbb20ba6cb05b0917a059e79f94f2097c4611e7bacb49adf5ff6821e370"
+        "095ecaac29fef277c0fc8a50edfc9d97d0112d501333bdf4c37dbe854e50"
+        "b38df170e052afbe6802817f15de11737ea4b53d6ec1723296baea957f7c"
+        "58109f5b67ef56cbb550d446518e2422c1ebbe01e7c72a0654e7626ff36a"
+        "895ee19fa4deb55f2dfdd03ef4fb41992e4918b0c1018769f1fd046b6a8a"
+        "4ed8d96bb9ca8811e1dfb210762a12678985c3b3cca2b168fd3650f66fc8"
+        "846f349b1ccac127fe3ba664471c4a6447eadcef9820cad63d8705697671"
+        "17b498a95e082c3bb9713fc2188709f7ba4be586ba290be9b8fae3f0f139"
+        "a07d832646215274e1e22a4e7deae64f9615b3907490874d1bc1b086808a"
+        "5a1e49ecc5a5e6c31c98807919a0663dec7089c36447c56f"),
+    "16x16": (
+        "f897a7241d67adad17a63bc08e004265a48cff85d107cbb83b7dd0228066"
+        "9ebbaa375a2fb4bff1ecfe9e4082751203c9131096edd6093b1c226a4ee2"
+        "0413ea3ec76752452f4ce98ed4cc174933a11d6616103b392b154834378f"
+        "067020bdab568a882e7136648e863896b2353202b1af1b9f2d368a150337"
+        "44851134d25b19ca3f991695a855c52136688911caa6999136fa4e3776a5"
+        "17bbb1fefabef1ab96d93b737e949abafcf2350383855ce4063011c5ccad"
+        "7c10dc5256de18c859f91f3beba1a2eb64b9ff3ccfcb8a4d2efe17bcc6a0"
+        "414b80321c91222aa90700c8b13ff25356b86dc3efc3f53f5068af10cbf2"
+        "57d2aed219aa60854a2f63c3397cb478b28230a9b40f8b9334839412d222"
+        "f02b1568ac739588cca442d8469b52274d53e90e0f723439d0ab5918593e"
+        "9085bcb69d1e25464a9854b25b24cb7c61782d40d35f3556f552680b7cd6"
+        "732c2de5c4d71e5ca0c900e3ae24bbf2a1ee922404ce69de046d4762cadb"
+        "1e97ac77525c20f2f7093e42dacb78ea3c7cd4d36c6ed723c2c9937fabc6"
+        "c91c9f8ad2e9beb1e2eb45f27d1252c31dcb158f4159cfe33f48e670443b"
+        "d1c3b305c0c2ab370178b0cf13a80549f4a0c871350b417d446112e541b4"
+        "313e5d0153f307d9c7194a4a8439d8ee537a119818779fe174d9c6515114"
+        "58d7fa948a03c02e4624f22e240e21bf5053d547b6a0a7c7cebd294a8970"
+        "ee78919c38581c42928dd084809dc8c1325276405b612db28ad969082232"
+        "4affa2531de4f4e990e9f7dff1d6a0df5e0f77529b7d3269c7e371ab1c0c"
+        "fafc85382bb76578c8d5d0fbe3655488208d4acb1f90a2affdc8b768f1ec"
+        "66b0970aaa2a8b6028866b7ffef9ea103bafc6540dd47aee8cc9b2306623"
+        "696b95b370d543532c92a0fe69d6cb044d6c332fd5803f9487abf970cf97"
+        "b2d1c0c106a9cc048c430d12de1dc0e85fcfc08196940864489239775126"
+        "5f881aabb333e72c403a2009ddce262bde2132da3a0894dd66a2af02a38e"
+        "3431d820d2bd3e02f52e4e29e242107b32502e9f8503dd81d5495f229bd1"
+        "b814d6934afb47c54a9ac036ad1e75e534c56243f416efe700a515f78ff4"
+        "fbfbb71c29e650525edc43fa59744e2cc4be6a7cd9b63c81a98ceac5a631"
+        "56dd8a37629b0e0b239e4fc4d125a29131afc70a9c2dbb670c2f0111b1da"
+        "a803cdb3fc8ab5072ee8bb1c8862c6a66ac295bad46cc4a18b539c489a45"
+        "b99e47f2ab8bed7e2fd81c0135f26f4e18cbc827ba3485fa3925d76ba7fa"
+        "01132fcc8a82c2edf11185bdcf9dcf7bbdb7bec404402c439257120422ac"
+        "f0b2c39f32f852986a8b12f62954f16fbc98259e35ccb79bb04dd0aa877d"
+        "38a89e958f797d31be971a14aa2caf5f53c7027af36df116057cf2aa323f"
+        "453cc30ba3c4e59867eac0ffeacef24659889903813bbd6b75938b591a28"
+        "8202618e374daf3b2a2f6226a256f8cd50e1635ee0c91bcaeb349add6c17"
+        "24675fd06bb363963970a322383a4ba48bfb0421effbfc213bab264f08c7"
+        "b0784ca7a3c565952b34d81980dee670b1a811f72739a08c989417d76eed"
+        "1f874ef4ed18cf77ffe3970fcc4dbafff4a53b1e13d1f095a23f69ebcc25"
+        "3fdf4a33b86dd766a8eaa299632fa2b0ee2978350bed91ba0ae401ae4630"
+        "ad719f635050f96bbd4d918ad2142589239118f49f10e9c7adc70250f7d9"
+        "d0e23776173ba02cccb5a18e96f52370f53cee75bafecc4e899c55249d66"
+        "a1fed37cc4dfa891f82dba3dba0496ac2f026be750d0149f269533c7f3ab"
+        "e9f61f8d114f80445bfbe692daeae21b91cb6eed5e16a29a201e4ee9adf3"
+        "3c8d23a48ab3c35e16b1e3e976b398fcb1689dc815e9be21e9dbb4ebf8c6"
+        "849db2e1ccd8d12e709795e211d4624de6997a1cdb129e636df8c81f9727"
+        "ff4f6ffeaafcbeddcb5c15d532966d824829046ee8ff0276b65661ebc00b"
+        "9fca674ece7bc23a4c7b40995ab1aa43318fc3002e7b5d4f3b2ab89894eb"
+        "e78d45fe8b7412cf380e6fb81ea987ca550fa8f970f45d65424156182de1"
+        "9521cecb5c7eb60b2778c78497d6148471a59a0a0a2a6177791356450a35"
+        "c9408ab2ddff39dd440659baa0046035f2c3499de9f3e18693f933b191be"
+        "b7f6e5f94442cc024dc2239443ab2a70e88b418b93786cdfa34d23f16700"
+        "e37e365169e074d3b2a0c123fdb2bc25975974e83a6c0b4647a51e5fe22a"
+        "bcb9293b2d54b7c32e213203d3236f3ddae0c7ca85e0bac4944f84ddaea6"
+        "cb2a22961802b9a021cee594037ba7bd05b83c7ab081854efcbee26df661"
+        "2447c66ac97b044772a1525c0a8b02872641088f3ff24e298ecb68070b17"
+        "c7fafc0bb642a2c00d42defa6353b8343835356014bbd283559337f07de3"
+        "0ccf58349d9be0a42bb41b4df745454a267700a76ed34784e590e47d26b8"
+        "c1b3a7eb3feb41d7f04d582fa152f0de58d572521f000caf3c97a1c8ba04"
+        "bab4a5b4e4e9889be7aa2ab4cb688c28666f99d0909243ec7059ce54a8cf"
+        "7402ac1e19dfa623603b100c30b5451b63ab14340414cd31410b4d49d729"
+        "f55a67a8eb6576d8acc34151d3899589b789336cadc78e4ec796d29399fc"
+        "9978bcb651e53df1c2cd0d8ada635a373074402f9211ae78664bf02f9648"
+        "c9937d6fc83f13ad7339df4ddfe82b154c80eea59e92ff8fcd38bd2b9265"
+        "7eee84955cab051a937ce8f817559d8ce52259fcf3f53864b73fc17145bd"
+        "4b445336b46f9a030c571eca4ff1e775780053fb442be87d1b0d4cf6e42b"
+        "bba14765cf19ddde21628d2db1dc2eabd532df197cc3021779088afe4e01"
+        "e8021b97f4282ad383480ffb3b09f440d6c48945665e737a4f484aa60b00"
+        "8fe0df2e1aa12ecae5d506d9d789ba91ee2bd2672099fd3bb6765a5a8a43"
+        "c70374c3f3818cba56ca31018fb6e32a5e2d5a562ecc81a7b68338a752cf"
+        "e313126939818f012b568b4b18abe84fb33fd6171d4ed010c9f7f5b5bb6f"
+        "994b83b5cf348c7a9834798adf0148e46da1ecdded23173bb86f70d441b0"
+        "bac2661ea418703ec78a2bc27772b9b2d6efbe40e91f12734e2319045c24"
+        "d2bf3e3a9e8689117e993b53c5dd1438e29313e5a8fa5faf4e99c2ef1ab1"
+        "e3c313772072d3e616b54ccf28aff070361bd78b012dc6ee741732e36e2d"
+        "d02c62c2a5cf04abc9a7acd9027d758feef7a374911cc8d2a2fab31aad7c"
+        "2d6f987a60a94411ceea6fcd7dee97d86733e327f66e10ce332af3efef4a"
+        "c92abd5abfed5fc71fcd455de4141baf809460e7960a6a27e3bb16c281e7"
+        "6145b7f1ecb857c8b22195e2a83792a836951405c19798725fda7a6d1555"
+        "f36ed7c5f073b9f203cec85a2416f56ca8bb678cbb3a3326075f87307424"
+        "63261ff50ead2e9a077087bbeed03cd154ce046804cc3e13ec33da07b360"
+        "fe09188e652bae8ec03c813b66201509c7e8bbeadde26154bde7f7b70e00"
+        "fd24608ef23a92fb95516342beff9b87ad88708831e1d467f2e01f33cb03"
+        "f76cbb0c8401e3492b7fee7d871e5ad079e112e95992604e43378935e434"
+        "101ab2ebb00d4374188dc3e880bb787e7966476280650697054e70958c63"
+        "5c575063490232c95ae0b5af4fce666def184269cde7aa8298bb1b37b5ba"
+        "cd69d12650911b024f304a21f70f8775889e6b588fa5b14ffdf7e395ddf2"
+        "f74e700c8c82d7c163f3adbff079451df607f4f950885a966c5869d6edc7"
+        "1af1e70da57be7e599560c502c939b7101b531503c8bb493ebeb3c9685d1"
+        "d1b6d214c470680f97230cdad6c8b1a31267d3952a5ad1a2020da6bad662"
+        "78780578ec670a3803413b101a634e8284b59b7a81ea858ab42179ee247d"
+        "0371d3a2e93a18d22b9584066b4794def6476f8d60d725c6065df66c49f4"
+        "78b1394dd82e1c197703f70b685c937c0cbc24a502abb4e6948895d1290b"
+        "d3b530612d66c600e3aea9f1d3ee29a6a0770350270d907cdc4ae6fef186"
+        "15a8575e372b063833eb1a6c5275629ce579ac95f2d6c799959c98c73b14"
+        "f8a98cdb99ef64add951cfe4012c9cacea7e2050e6a8a7c65367c30478c6"
+        "1547febeb71635307aa07052adae8062b658d380ad1e76bc73f97fe6cf5e"
+        "cf1e7896ed4cdc419d870903c2256ad8391285598dbfb321d462287f2a56"
+        "568ca952d9b1d00a40f192cac204301bc52b2bc70c2a5114029341c06b6c"
+        "ed4126bdb95da1ecc133a0512e9d7d4c7075875354be887089681d0c1eb3"
+        "f9bca0eebbd375b7e35bbffc39c8333228678caf58d5db5422aa7443d485"
+        "cb1bf1af3e46a64dbc3d659f868892d5ba41aefa42e4ac19fb47cbee0a4a"
+        "5f621c4b5008c204fde3b762646b06766788e3e35e64c7e7b09e5f922183"
+        "a9f717aa023f22fc47907925e2420e66e4afcf54e7fcf2e57255ee64569a"
+        "17062e9b39517707857f8ffd022c31cba7c9a6938a92125dad4bdaaf56ff"
+        "c885849796351543c63505429ea832a27143cfe2b256eae6e1e04ab362cb"
+        "a1c321c36e1aa000c27b700d2229e4836f0555087c5f3df82313844589b6"
+        "a7bafee1a1fc21ee274a22f174fca22c356253d34d6df6877ca8436797ce"
+        "3408619e4f062bd5a0ea3ef4ded46500c403bfec710dd8615ee56d901773"
+        "9614140b1d69e1bb46c6ce74fff066d37cc4a807d424dbef0e06c8060b9d"
+        "cb1ab089e3ac2a5e6a2047befe6bf7654251a7835932863eec7043380545"
+        "7f5d12bc3d72c1bd8b9036cd025db536a096f28aa0479de97a737f833697"
+        "4b8ea741cb2de1839d5173b5a9b6202f4049c60f818180084813c08090ea"
+        "54f011ba863e2f7478b6584925ef49e20d8b6b59b2c98b8c1c4eab918828"
+        "315a88222034eab0245a08e639b370cf3304ec3215bd3ce8c78685bed913"
+        "bd3601be37fc10cbea8467f1486735d9a8290d2450b3fec668aed3cb789e"
+        "17e9d25643547dee238ec120f596aeee9d75cfe48dda505e446465a40baa"
+        "b42704eceadd0a4f63b179e94ec8815789428303070b73ab67d212e6a161"
+        "1af89f91a9d965341626376f105420be3d1632a99857bf4571729d4a1a9b"
+        "1363c582f4c6dda0ee5414e19284fdf1f5b48a9e834adf14fcd950f4778e"
+        "caa49b047c0f52f23ef78fe92a30202be573a3d522cd28b11ca96c727989"
+        "49b9c18c294b2b172e8c8f5309484256abe046cafdee9c430457c8e0ed7c"
+        "7830ce8ef077eacd8313809491349458c3eb2b39276c28c93b6022e11cb2"
+        "ce425bd40245b9688cc9f45219db427359d02c0cb2e01488318f4cbec032"
+        "b996dd138b0b8c3dd3a4c84ce61b5c5959a6b1363994630ca1cefbcc478d"
+        "ee634c71b51e56e7e44583e195621f208af84769ef3f3a4a97317878b25e"
+        "cb796ff81342f470d7a0b7d2815e9d643c3ff9f5757cd2ce83b55b7694c7"
+        "a7fbc5a54f4c8988deca8c6afd81f0ebc0e0288a08833d777f87b9da0b96"
+        "0132dfeed7f417ed417f0ea272a734f166a55c3cad32f3778fc5612b6e25"),
+}
+
+
+# -- serving (slice 12) -------------------------------------------------------
+
+#: sizes of the serve phase: the wave-against-solo check (16 jobs of the
+#: mix through 8 slots; the solo runs split over ``solo_children``
+#: child processes), the serving run (the JAX ``--serve`` mix and queue
+#: rule, 256 slots; cut from 1024 jobs to ``run_jobs``, two full waves,
+#: and from the median of 3 to ``reps`` timed passes, for the phase's
+#: time: PERF.md section 4; ``chip_smoke.py --serve-run 1024`` runs the
+#: whole mix alone), the one-slot baseline (the first ``base_jobs``
+#: jobs, one of each workload of the mix, cut from 64; one timed pass
+#: and no warm pass, the serving run having drawn their traces) and the
+#: daemon soak (two job shapes, ``rate`` jobs/s each for ``window_s``
+#: seconds)
+SERVE = dict(nodes=32, trace_len=32, chunk=32, check_jobs=16, check_slots=8,
+             solo_children=2, run_jobs=512, run_slots=256, reps=2,
+             profile=16, base_jobs=4, small=16, rate=50.0,
+             window_s=10.0, daemon_slots=256, daemon_chunk=16,
+             soak_timeout_s=300.0, child_timeout_s=400.0, cpu_threads=2)
+
+
+def exact_solo(cfg, state, chunk: int, max_cycles: int = 100_000):
+    """A job run alone to quiescence, stopping exactly where it quiesces
+    (the wave freezes a job at that cycle): ``chunk`` cycles between
+    host reads, the last chunk again a cycle at a time
+    (``run_chunked_to_quiescence`` at chunk 1)."""
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import step
+    while True:
+        nxt = step.run_cycles(cfg, state, chunk)
+        if bool(nxt.quiescent()) or int(nxt.cycle) >= max_cycles:
+            break
+        state = nxt
+    return step.run_chunked_to_quiescence(cfg, state, 1, max_cycles)
+
+
+def serve_child(spec_path: str) -> int:
+    """A child process of the serve phase. Task "serve_cpu": the check's
+    ``serve`` with --cpu (device "cpu") under a VirtualClock into "out",
+    its doc written to "result". Task "solo": the check jobs of indices
+    ``part`` mod ``parts`` each alone on the card (``exact_solo``), their
+    leaves (``convert.sim_numpy_leaves``) written to "result" (npz, one
+    key a job and leaf)."""
+    import numpy as np
+    import torch
+    from ue22cs343bb1_openmp_assignment_tpu_torch import convert, serve
+    from ue22cs343bb1_openmp_assignment_tpu_torch import state as st
+    from ue22cs343bb1_openmp_assignment_tpu_torch.obs.clock import (
+        VirtualClock)
+    with open(spec_path) as f:
+        spec = json.load(f)
+    S = spec["sizes"]
+    torch.set_num_threads(S["cpu_threads"])
+    specs = serve.mixed_jobs(S["check_jobs"], S["nodes"], S["trace_len"])
+    if spec["task"] == "serve_cpu":
+        doc = serve.serve(specs, slots=S["check_slots"], chunk=S["chunk"],
+                          clock=VirtualClock(), out_dir=spec["out"],
+                          device="cpu")
+        with open(spec["result"], "w") as f:
+            f.write(json.dumps(doc, indent=2))
+        return 0
+    out = {}
+    for s in specs[spec["part"]::spec["parts"]]:
+        cfg = serve.job_config(s)
+        s0 = st.init_state(cfg, instr_arrays=serve.build_job_arrays(
+            cfg, s, "cuda"), device="cuda")
+        for k, v in convert.sim_numpy_leaves(
+                exact_solo(cfg, s0, S["chunk"])).items():
+            out[f"{s.name}__{k}"] = v
+    np.savez(spec["result"], **out)
+    return 0
+
+
+def _serve_children(tmp: str) -> list:
+    """The serve phase's child processes, all started together: the
+    --cpu serve and SERVE["solo_children"] parts of the solo runs;
+    [(process, result path, log path)]."""
+    import os
+    kids = []
+    parts = SERVE["solo_children"]
+    for task, part in [("serve_cpu", 0)] + [("solo", k)
+                                            for k in range(parts)]:
+        name = f"{task}{part}"
+        result = os.path.join(tmp, f"{name}.result"
+                              + (".npz" if task == "solo" else ".json"))
+        spec = os.path.join(tmp, f"{name}.spec.json")
+        with open(spec, "w") as f:
+            json.dump({"task": task, "part": part, "parts": parts,
+                       "sizes": SERVE, "result": result,
+                       "out": os.path.join(tmp, "cpu_out")}, f)
+        log = open(os.path.join(tmp, f"{name}.log"), "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "sys.exit(chip_smoke.serve_child(sys.argv[1]))", spec],
+            cwd=os.path.dirname(os.path.abspath(__file__)), stdout=log,
+            stderr=subprocess.STDOUT)
+        kids.append((proc, result, log.name))
+        log.close()
+    return kids
+
+
+def _wait_kids(kids: list, timeout: float) -> None:
+    """Wait for every child (killing the rest on a failure or at the
+    timeout)."""
+    try:
+        deadline = time.perf_counter() + timeout
+        for proc, _, log in kids:
+            try:
+                rc = proc.wait(timeout=max(1.0,
+                                           deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                raise SmokeFailure(f"serve child timed out after "
+                                   f"{timeout:.0f} s")
+            if rc != 0:
+                with open(log) as f:
+                    tail = f.read()[-2000:]
+                raise SmokeFailure(f"serve child exited {rc}: {tail}")
+    finally:
+        for proc, _, _ in kids:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def _serve_check_on_card(tmp: str, card: str):
+    """The check's 16 jobs through 8 slots on the card under a
+    VirtualClock with --out-dir; every wave's batch captured (host copy)
+    for the leaf comparison. Returns (doc, waves)."""
+    import os
+    from ue22cs343bb1_openmp_assignment_tpu_torch import serve
+    from ue22cs343bb1_openmp_assignment_tpu_torch.obs.clock import (
+        VirtualClock)
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import step
+    S = SERVE
+    specs = serve.mixed_jobs(S["check_jobs"], S["nodes"], S["trace_len"])
+    captured = []
+    real = step.run_wave_to_quiescence
+
+    def capture(*a, **kw):
+        out = real(*a, **kw)
+        captured.append(serve.host_state(out))
+        return out
+    step.run_wave_to_quiescence = capture
+    try:
+        t0 = time.perf_counter()
+        doc = serve.serve(specs, slots=S["check_slots"], chunk=S["chunk"],
+                          clock=VirtualClock(),
+                          out_dir=os.path.join(tmp, "card_out"),
+                          device="cuda")
+        wall = time.perf_counter() - t0
+    finally:
+        step.run_wave_to_quiescence = real
+    if doc["jobs_quiesced"] != len(specs) or len(captured) != \
+            doc["wave_count"]:
+        raise SmokeFailure(f"serve check: {doc['jobs_quiesced']}/"
+                           f"{len(specs)} quiesced, {len(captured)} waves "
+                           f"captured of {doc['wave_count']}")
+    say("serve", f"{len(specs)} jobs of the mix at {S['nodes']} x "
+        f"{S['trace_len']} through {S['check_slots']} slots, chunk "
+        f"{S['chunk']}, on the card: {doc['wave_count']} waves, "
+        f"{wall:.2f} s ({card})")
+    return doc, captured
+
+
+def _mid_wave_swap(card: str) -> None:
+    """Two copies of one batch stepped chunk by chunk in lockstep, one
+    with a ``set_state`` swap of slot 3 after two chunks: every other
+    slot's leaves stay equal, chunk after chunk."""
+    from ue22cs343bb1_openmp_assignment_tpu_torch import serve
+    from ue22cs343bb1_openmp_assignment_tpu_torch import state as st
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import step
+    S, dev = SERVE, "cuda"
+    specs = serve.mixed_jobs(S["check_slots"] + 1, S["nodes"],
+                             S["trace_len"])
+    cfg = serve.slot_config(specs)
+    states = [serve.build_job_state(cfg, cfg, s, dev) for s in specs[:-1]]
+    a, b = st.stack_states(states), st.stack_states(states)
+    swap = min(3, S["check_slots"] - 1)
+    keep = [i for i in range(S["check_slots"]) if i != swap]
+    for k in range(5):
+        if k == 2:
+            b = st.set_state(b, swap, serve.build_job_state(cfg, cfg,
+                                                            specs[-1], dev))
+        a = step.run_wave_chunk(cfg, a, S["chunk"])[0]
+        b = step.run_wave_chunk(cfg, b, S["chunk"])[0]
+        for name, x, y in zip(st.SIM_LEAVES, st.state_leaves(a),
+                              st.state_leaves(b)):
+            if not (x[keep] == y[keep]).all():
+                raise SmokeFailure(f"serve swap: leaf {name} of a neighbour "
+                                   f"changed after chunk {k}")
+    say("serve", f"mid-wave set_state swap of slot {swap} after 2 of 5 "
+        f"chunks: the other {len(keep)} slots' leaves equal to the "
+        f"unswapped batch's after every chunk ({card})")
+
+
+def _bench_serve(argv: list) -> dict:
+    """``bench.main(["--serve", ...])`` in this process: its JSON line."""
+    import contextlib
+    import io
+    from ue22cs343bb1_openmp_assignment_tpu_torch import bench
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = bench.main(argv + ["--device", "cuda"])
+    if rc != 0:
+        raise SmokeFailure(f"bench {' '.join(argv)}: exit {rc}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def _reference_digest(shape: str, seed: int) -> str:
+    k = SERVE_REFERENCE["hex"]
+    if seed >= SERVE_REFERENCE["jobs"][shape]:
+        raise SmokeFailure(f"serve: no reference for {shape} seed {seed}")
+    return SERVE_REFERENCE[shape][seed * k:(seed + 1) * k]
+
+
+def _serve_figures(d: dict) -> str:
+    prof = d.get("profile") or {}
+    solo = d.get("profile_solo") or {}
+    peak = d["peak_device_bytes"]
+    warm = d["warm_s"] is not None
+    return (f"{d['jobs_per_sec']:.3f} jobs/sec (median of "
+            f"{len(d['reps_s'])} timed passes, "
+            + (f"after one warm pass of {d['warm_s']:.2f} s" if warm else
+               "no warm pass")
+            + f"), padding_waste {d['padding_waste']:.4f}, {d['waves']} "
+            f"waves, {d['wave_cycles']} wave cycles, "
+            f"{d['ms_per_wave_cycle']:.3f} ms a wave cycle; device launches "
+            f"a wave cycle {prof.get('device_launches_per_round', 0):.1f} "
+            f"against {solo.get('device_launches_per_round', 0):.1f} a solo "
+            f"cycle (busy {prof.get('device_busy_ms_per_round', 0):.4f} / "
+            f"{solo.get('device_busy_ms_per_round', 0):.4f} ms, idle share "
+            f"{prof.get('device_idle_share', 0):.3f}); threefry launches "
+            + (f"{d['launches_warm']['threefry']} in the warm pass, "
+               if warm else "")
+            + f"{d['launches']['threefry']} in a timed one; peak device "
+            f"memory {(peak or 0) / 2**20:.1f} MiB")
+
+
+def _serve_common() -> list:
+    S = SERVE
+    return (["--serve", "--nodes", str(S["nodes"]), "--trace-len",
+             str(S["trace_len"]), "--chunk", str(S["chunk"])]
+            + (["--profile", str(S["profile"])] if S["profile"] else []))
+
+
+def _serve_run(tmp: str, card: str, jobs: int, reps: int) -> dict:
+    """The serving run through the port's bench (the JAX ``--serve`` mix
+    and queue rule, SERVE["run_slots"] slots, ``jobs`` jobs, one warm
+    pass then the median of ``reps``); every job's digest, from the warm
+    pass's --serve-out-dir files, equal to SERVE_REFERENCE."""
+    import os
+    from ue22cs343bb1_openmp_assignment_tpu_torch import serve
+    S = SERVE
+    shape = f"{S['nodes']}x{S['trace_len']}"
+    out = os.path.join(tmp, "run_out")
+    d = _bench_serve(_serve_common() + [
+        "--serve-slots", str(S["run_slots"]), "--serve-jobs", str(jobs),
+        "--reps", str(reps), "--serve-out-dir", out])
+    if d["jobs_quiesced"] != jobs or d["mb_dropped"]:
+        raise SmokeFailure(f"serve run: {d['jobs_quiesced']} quiesced, "
+                           f"{d['mb_dropped']} dropped")
+    _check_launches("serve run (warm)", d["launches_warm"],
+                    {"threefry": ">0"})
+    _check_launches("serve run (timed)", d["launches"], {})
+    bad = []
+    for s in serve.mixed_jobs(jobs, S["nodes"], S["trace_len"]):
+        with open(os.path.join(out, s.name, "metrics.json")) as f:
+            metrics = json.load(f)["metrics"]
+        got = serve.job_digest(serve.read_job_dumps(os.path.join(
+            out, s.name), S["nodes"]), metrics)
+        if got[:SERVE_REFERENCE["hex"]] != _reference_digest(shape, s.seed):
+            bad.append(s.name)
+    if bad:
+        raise SmokeFailure(f"serve run: {len(bad)} job digests differ from "
+                           f"SERVE_REFERENCE: {bad[:8]}")
+    say("serve", f"serving run, serve.mixed_jobs({jobs}, {S['nodes']}, "
+        f"{S['trace_len']}) through {S['run_slots']} slots, chunk "
+        f"{S['chunk']}, queue capacity 64 (bench --serve): all {jobs} "
+        f"jobs' digests equal to SERVE_REFERENCE (the JAX package's "
+        f"serve); " + _serve_figures(d) + f" ({card})")
+    return d
+
+
+def _serve_baseline(card: str) -> dict:
+    """The one-slot baseline through the port's bench: the first
+    SERVE["base_jobs"] jobs of the mix, their traces drawn by the
+    serving run before it, so one timed pass and no warm pass."""
+    S = SERVE
+    b = _bench_serve(_serve_common() + [
+        "--serve-slots", "1", "--serve-jobs", str(S["base_jobs"]),
+        "--reps", "1", "--serve-no-warm"])
+    if b["jobs_quiesced"] != S["base_jobs"]:
+        raise SmokeFailure(f"serve baseline: {b['jobs_quiesced']} quiesced")
+    _check_launches("serve baseline", b["launches"], {})
+    say("serve", f"one-slot baseline over the first {S['base_jobs']} jobs "
+        f"(bench --serve --serve-slots 1 --serve-no-warm): "
+        + _serve_figures(b) + f" ({card})")
+    return b
+
+
+def _daemon_arrivals() -> list:
+    """The daemon soak's open-loop stream: ``soak_stream`` at
+    SERVE["rate"] jobs/s of each job shape (16 x 16, seed 0, and 32 x
+    32, seed 1) over SERVE["window_s"] seconds, the names prefixed by
+    their shape."""
+    from ue22cs343bb1_openmp_assignment_tpu_torch import soak
+    S = SERVE
+    out = []
+    for seed, n in ((0, S["small"]), (1, S["nodes"])):
+        for t, spec in soak.soak_stream(S["rate"], S["window_s"], nodes=n,
+                                        trace_len=n, seed=seed):
+            out.append((t, dataclasses.replace(spec,
+                                               name=f"s{n}.{spec.name}")))
+    return sorted(out, key=lambda a: (a[0], a[1].name))
+
+
+def _start_daemon(tmp: str):
+    """``cache-sim-torch daemon`` in a child process on a unix socket
+    under ``tmp`` (both lanes, SERVE["daemon_slots"] slots a bucket),
+    given one warm-up job of each soak shape: (process, socket)."""
+    import os
+    from ue22cs343bb1_openmp_assignment_tpu_torch import serve
+    from ue22cs343bb1_openmp_assignment_tpu_torch.daemon.client import (
+        DaemonClient)
+    S = SERVE
+    sock = os.path.join(tmp, "daemon.sock")
+    argv = [sys.executable, "-m", "ue22cs343bb1_openmp_assignment_tpu_torch.cli",
+            "daemon", "--addr", sock, "--slots", str(S["daemon_slots"]),
+            "--chunk", str(S["daemon_chunk"]), "--keep-dumps", "--retain",
+            "4096", "--quiet"]
+    log = open(os.path.join(tmp, "daemon.log"), "w")
+    proc = subprocess.Popen(argv, cwd=os.path.dirname(os.path.abspath(
+        __file__)), stdout=log, stderr=subprocess.STDOUT)
+    log.close()
+    try:
+        with DaemonClient(sock) as c:
+            c.wait_up(timeout_s=60.0)
+            for n in (S["small"], S["nodes"]):
+                c.submit(serve.JobSpec(name=f"warm{n}", nodes=n,
+                                       trace_len=n), lane="batch")
+    except BaseException:
+        proc.kill()
+        proc.wait()
+        raise
+    return proc, sock
+
+
+def _serve_daemon(proc, sock: str, card: str) -> None:
+    """The daemon soak: the warm-up jobs done, the open-loop
+    ``soak_daemon`` stream of two shapes (so the daemon keeps two
+    buckets). Every result's digest equals SERVE_REFERENCE; ``stats``
+    passes validate_daemon_stats and ``top`` validate_fleet; drain, then
+    shut down. A hang fails through the soak's timeout."""
+    import contextlib
+    import io
+    from ue22cs343bb1_openmp_assignment_tpu_torch import cli, serve, soak
+    from ue22cs343bb1_openmp_assignment_tpu_torch.daemon.client import (
+        DaemonClient)
+    from ue22cs343bb1_openmp_assignment_tpu_torch.obs import schema
+    S = SERVE
+    try:
+        arrivals = _daemon_arrivals()
+        with DaemonClient(sock) as c:
+            for n in (S["small"], S["nodes"]):
+                if c.wait(f"warm{n}", timeout_s=120.0)["status"] != "done":
+                    raise SmokeFailure("serve daemon: warm-up job not done")
+        t0 = time.perf_counter()
+        doc = soak.soak_daemon(arrivals, sock, arrival_rate=2 * S["rate"],
+                               timeout_s=S["soak_timeout_s"])
+        wall = time.perf_counter() - t0
+        bad, done = [], 0
+        with DaemonClient(sock) as c:
+            for _, spec in arrivals:
+                r = c.result(spec.name)
+                if r.get("status") != "done":
+                    continue
+                done += 1
+                got = serve.job_digest(r["dumps"], r["metrics"])
+                if got[:SERVE_REFERENCE["hex"]] != _reference_digest(
+                        f"{spec.nodes}x{spec.trace_len}", spec.seed):
+                    bad.append(spec.name)
+            stats = schema.validate_daemon_stats(c.stats())
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["top", sock, "--once", "--json"])
+        fleet = schema.validate_fleet(json.loads(buf.getvalue()))
+        with DaemonClient(sock) as c:
+            drained = c.drain()
+            c.shutdown()
+        rc_d = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    rejected = len(doc["rejected"])
+    if (bad or done != len(arrivals) - rejected or rc != 0 or rc_d != 0
+            or not drained.get("drained") or doc["jobs_quiesced"] != done
+            or fleet["jobs"]["done"] != stats["jobs"]["done"]):
+        raise SmokeFailure(f"serve daemon: {len(bad)} digests differ "
+                           f"({bad[:6]}), {done} done of {len(arrivals)} - "
+                           f"{rejected} rejected, top rc {rc}, daemon exit "
+                           f"{rc_d}, drain {drained}")
+    lat = doc["latency"]
+    say("serve", f"daemon (child process, unix socket, lanes interactive "
+        f"and batch, {S['daemon_slots']} slots a bucket, chunk "
+        f"{S['daemon_chunk']}): open-loop soak_daemon of {len(arrivals)} "
+        f"jobs ({S['rate']:g} jobs/s of each of {S['small']} x {S['small']}"
+        f" and {S['nodes']} x {S['nodes']} over {S['window_s']:g} s) in "
+        f"{wall:.2f} s: every one of the {done} results' digests equal to "
+        f"SERVE_REFERENCE; client-observed p50 {lat['p50_ms']:.1f} ms, p95 "
+        f"{lat['p95_ms']:.1f} ms, p99 {lat['p99_ms']:.1f} ms; rejected "
+        f"{rejected}; buckets "
+        f"{[b['bucket'] for b in stats['buckets']]}, bucket growths "
+        f"{stats['bucket_growths']}, mid-wave swaps "
+        f"{stats['mid_wave_swaps']}, {stats['chunks']} chunks, busy "
+        f"{stats['busy_s']:.2f} s, drain rate "
+        f"{stats['drain_rate_jobs_per_s']:.2f} jobs/s, padding_waste "
+        f"{stats['padding_waste']:.4f} (one shape: "
+        f"{stats['single_shape_padding_waste']:.4f}); stats valid, top "
+        f"valid ({fleet['replicas']} replica); drained and shut down, exit "
+        f"0 ({card})")
+
+
+def phase_serve(card: str) -> None:
+    """The serving layer on the card (slice 12): the wave against solo
+    runs and against --cpu, a mid-wave swap, the serving run and its
+    one-slot baseline through the bench, and the daemon."""
+    import os
+    import tempfile
+    import numpy as np
+    from ue22cs343bb1_openmp_assignment_tpu_torch import convert
+    from ue22cs343bb1_openmp_assignment_tpu_torch import state as st
+    t0 = time.perf_counter()
+    S = SERVE
+    with tempfile.TemporaryDirectory() as tmp:
+        kids = _serve_children(tmp)
+        daemon = None
+        try:
+            daemon = _start_daemon(tmp)
+            doc, waves = _serve_check_on_card(tmp, card)
+            _mid_wave_swap(card)
+            _wait_kids(kids, S["child_timeout_s"])
+            # the measured runs start once the children are done
+            _serve_run(tmp, card, S["run_jobs"], S["reps"])
+            _serve_baseline(card)
+            _serve_daemon(*daemon, card)
+        finally:
+            for proc in [k[0] for k in kids] + ([daemon[0]] if daemon
+                                                else []):
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        # the card's serve doc and files against the --cpu child's
+        with open(kids[0][1]) as f:
+            cpu_doc = f.read()
+        if json.dumps(doc, indent=2) != cpu_doc:
+            raise SmokeFailure("serve: the card's serve doc differs from "
+                               "--cpu's")
+        fa, fb = _files(os.path.join(tmp, "card_out")), _files(
+            os.path.join(tmp, "cpu_out"))
+        if sorted(fa) != sorted(fb) or any(fa[k] != fb[k] for k in fa):
+            raise SmokeFailure("serve: card and --cpu --out-dir files "
+                               "differ")
+        # every leaf of every extracted job against its solo run
+        solo = {}
+        for _, result, _ in kids[1:]:
+            with np.load(result) as z:
+                solo.update({k: z[k] for k in z.files})
+        for span in doc["trace"]["spans"]:
+            got = convert.sim_numpy_leaves(st.index_state(
+                waves[span["wave"] - 1], span["slot"]))
+            for k, v in got.items():
+                if not np.array_equal(v, solo[f"{span['job']}__{k}"]):
+                    raise SmokeFailure(f"serve: {span['job']} leaf {k} "
+                                       "differs from its solo run")
+        say("serve", f"every leaf of the {len(doc['trace']['spans'])} "
+            f"extracted jobs equal to its solo run on the card (a child "
+            f"process; cycles {sorted(doc['jobs'][j]['cycles'] for j in doc['jobs'])}"
+            f"); the serve doc and the {len(fa)} --out-dir files equal "
+            f"to --cpu's (a child process), byte for byte ({card})")
+    say("serve", f"serve phase took {time.perf_counter() - t0:.1f} s")
+
+
 def phase_multi_card() -> None:
     import torch
     from ue22cs343bb1_openmp_assignment_tpu_torch.parallel import ring_kernel
@@ -2776,7 +3690,27 @@ def phase_multi_card() -> None:
         f"per sender): every inbox equal to the per-pair copies")
 
 
-def main() -> int:
+def serve_run_alone(card: str, jobs: int) -> None:
+    """``--serve-run JOBS``: the serve phase's serving run alone at
+    ``jobs`` jobs of the mix, one warm pass then the median of 3, every
+    digest held to SERVE_REFERENCE."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        _serve_run(tmp, card, jobs, 3)
+    say("serve", f"serving run alone took {time.perf_counter() - t0:.1f} s")
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="The port's check on one "
+                                 "NVIDIA card (every phase, with no "
+                                 "arguments).")
+    ap.add_argument("--serve-run", type=int, metavar="JOBS", default=None,
+                    help="only the serve phase's serving run, at JOBS jobs "
+                         "of the mix (at most 1024, as SERVE_REFERENCE "
+                         "pins), median of 3")
+    args = ap.parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -2797,6 +3731,10 @@ def main() -> int:
         card = smi()
         say("device", f"{card}; torch {torch.__version__}, CUDA "
             f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+        if args.serve_run is not None:
+            serve_run_alone(card, args.serve_run)
+            print(card)
+            return 0
         from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
             deep_fold_kernel, deep_round_kernel, sync_burst_kernel,
             sync_multi_round_kernel, sync_round_kernel, sync_window_kernel)
@@ -2830,26 +3768,38 @@ def main() -> int:
             # library every key, count and mode: all run-time arguments
             + [(ring_kernel.LIBRARY, None), (threefry_kernel.LIBRARY, None)]
             + cli_configs())
+        times = {"device + build": time.perf_counter() - t_all}
+
+        def timed(name, fn, *args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            times[name] = time.perf_counter() - t0
+            return out
         random_rows = {}
-        phase_random(random_rows)
-        rows, st = phase_kernel_vs_plain(cfg)
+        timed("random", phase_random, random_rows)
+        rows, st = timed("kernel vs plain", phase_kernel_vs_plain, cfg)
         rows.update(random_rows)
-        rows["round"] = phase_round_vs_plain(cfg, st)
-        phase_card_vs_cpu()
-        phase_main_path(rows)
-        rows.update(phase_sync_kernels())
-        rows["sync_round"] = phase_sync_round_kernel()
-        rows["sync_multi_round"] = phase_sync_multi_round_kernel()
-        phase_sync_card_vs_cpu()
-        phase_sync_main_path(rows)
-        phase_ensembles(rows)
-        rows["ring"] = phase_ring_kernel()
-        phase_async_card_vs_cpu()
-        phase_async_main_path(rows)
-        phase_async_uniform(rows)
-        phase_multi_card()
-        phase_cli(card)
-        phase_obs(card)
+        rows["round"] = timed("round vs plain", phase_round_vs_plain, cfg,
+                              st)
+        timed("card vs cpu", phase_card_vs_cpu)
+        timed("main (deep)", phase_main_path, rows)
+        rows.update(timed("sync kernels", phase_sync_kernels))
+        rows["sync_round"] = timed("sync round kernel",
+                                   phase_sync_round_kernel)
+        rows["sync_multi_round"] = timed("sync multi round kernel",
+                                         phase_sync_multi_round_kernel)
+        timed("sync card vs cpu", phase_sync_card_vs_cpu)
+        timed("main (sync)", phase_sync_main_path, rows)
+        timed("ensembles", phase_ensembles, rows)
+        rows["ring"] = timed("ring kernel", phase_ring_kernel)
+        timed("async card vs cpu", phase_async_card_vs_cpu)
+        timed("main (async)", phase_async_main_path, rows)
+        timed("async uniform", phase_async_uniform, rows)
+        timed("multi-card", phase_multi_card)
+        timed("cli", phase_cli, card)
+        timed("obs", phase_obs, card)
+        timed("serve", phase_serve, card)
+        say("time", ", ".join(f"{k} {v:.1f} s" for k, v in times.items()))
     except (SmokeFailure, AssertionError, RuntimeError, ValueError) as e:
         print(f"FAIL: {type(e).__name__}: {e}", flush=True)
         return 1

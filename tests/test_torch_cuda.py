@@ -635,3 +635,32 @@ def test_checkpoint_written_on_card_loads_on_cpu(card, tmp_path):
     a, b = convert.to_numpy(t.state), convert.to_numpy(back.state)
     for k in a:
         assert (a[k] == b[k]).all(), k
+
+
+def test_wave_on_card_equals_cpu(card):
+    """The serving layer's wave (one vmapped cycle over the job axis)
+    on the card: every leaf of every slot equal to the same wave on the
+    CPU, chunk by chunk, and a card serve doc equal to the CPU's."""
+    from ue22cs343bb1_openmp_assignment_tpu_torch import serve
+    from ue22cs343bb1_openmp_assignment_tpu_torch import state as st
+    from ue22cs343bb1_openmp_assignment_tpu_torch.obs.clock import (
+        VirtualClock)
+    specs = serve.mixed_jobs(6, nodes=8, trace_len=8)
+    cfg = serve.slot_config(specs)
+    batches = {dev: st.stack_states([serve.build_job_state(cfg, cfg, s, dev)
+                                     for s in specs])
+               for dev in ("cpu", "cuda")}
+    for _ in range(40):
+        out = {dev: step.run_wave_chunk(cfg, b, 8)
+               for dev, b in batches.items()}
+        batches = {dev: o[0] for dev, o in out.items()}
+        assert convert.leaves_digest(convert.sim_numpy_leaves(
+            batches["cpu"])) == convert.leaves_digest(
+                convert.sim_numpy_leaves(batches["cuda"]))
+        assert torch.equal(out["cpu"][2], out["cuda"][2].cpu())
+        if bool(out["cpu"][2].all()):
+            break
+    assert bool(out["cuda"][1].all())
+    docs = [serve.serve(specs, slots=4, chunk=8, clock=VirtualClock(),
+                        device=dev) for dev in ("cpu", "cuda")]
+    assert docs[0] == docs[1]

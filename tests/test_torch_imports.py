@@ -56,7 +56,11 @@ def test_scans_cover_the_copied_modules():
                  "utils.trace", "config", "types", "codec", "obs.schema",
                  "utils.order_replay", "native.bindings", "obs.phases",
                  "obs.timeseries", "obs.txntrace", "obs.critpath",
-                 "obs.perfetto", "obs.cohprof", "obs.flight"):
+                 "obs.perfetto", "obs.cohprof", "obs.flight",
+                 "obs.clock", "obs.events", "obs.burnrate",
+                 "obs.recording", "obs.promexpo", "obs.fleet",
+                 "daemon.protocol", "daemon.bucketing", "daemon.server",
+                 "daemon.client"):
         assert f"{PKG}.{copy}" in mods, copy
 
 

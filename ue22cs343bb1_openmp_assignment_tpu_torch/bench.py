@@ -10,6 +10,11 @@
         [--workload NAME] [--queue-capacity Q] [--shards D]
         [--transport rdma|all_to_all] [--profile CYCLES]
         [--ledger | --coherence-profile]
+    python -m ue22cs343bb1_openmp_assignment_tpu_torch.bench --serve
+        [--serve-slots S] [--serve-jobs J] [--nodes N] [--trace-len L]
+        [--chunk K] [--profile CYCLES] [--serve-out-dir DIR | --serve-no-warm]
+    python -m ue22cs343bb1_openmp_assignment_tpu_torch.bench --soak
+        [--arrival-rate R] [--soak-duration S] [--daemon]
 
 Runs a transactional engine at the JAX ``bench.py``'s defaults (4096
 nodes, 4096 uniform instructions per node, locality ``--local-frac``
@@ -60,6 +65,33 @@ exactly that many cycles under the message ledger
 (``obs.txntrace.capture``, chunk ``--chunk``, each chunk's ledger read to
 the host) or the coherence-profile planes (``ops.step.
 run_cycles_profile``); unrouted only, async only, one of the two.
+
+``--serve`` and ``--soak`` (JAX ``bench.py:30-310``) measure the batched
+serving layer instead of one machine, with the JAX bench's rules: the
+traffic mix is ``serve.mixed_jobs`` (uniform, false_sharing,
+producer_consumer, hotspot; seeds 0..J-1) at the job shape ``--nodes`` x
+``--trace-len``, through ``--serve-slots`` batch slots (default 8; 1 is
+the sequential baseline), the queue capacity ``max(64, 2 * nodes)``.
+``--serve`` times whole ``serve.serve`` passes over ``--serve-jobs`` jobs
+(default twice the slots): one warm pass (it draws every job's trace,
+which later passes reuse; ``--serve-out-dir`` has it write every job's
+dumps and metrics doc), then the median of ``--reps``
+(``--serve-no-warm`` times every pass, for a process that has already
+drawn these jobs' traces in an earlier ``--serve`` of the same mix and
+shape); it reports
+jobs/sec with ``padding_waste`` beside it, the waves and wave cycles
+(a wave runs chunk-granular to its slowest job), ms a wave cycle, the
+launch counts of the warm pass and of one timed pass, and the peak
+device memory of the timed passes; ``--profile C`` adds a torch.profiler
+window of C wave cycles of a full batch beside C cycles of one machine
+of the same shape. ``--soak`` releases ``serve.mixed_jobs``-style
+arrivals (``soak.soak_stream`` at ``--arrival-rate`` for
+``--soak-duration`` seconds) open-loop and reports the p50/p95/p99 job
+latency in ms; the warm pass runs on a VirtualClock. ``--daemon`` sends
+the stream through an in-process daemon on a unix socket under a
+temporary directory (``soak.soak_daemon``: client-observed latency,
+continuous admission, shape buckets). ``--record`` (bench history) is
+not ported yet (ROADMAP.md, Queue 1 item 4).
 
 The JSON line carries instrs/sec, rounds (cycles for the async engine),
 ms/round (ms/cycle), the card's name and power limit, the workload and
@@ -289,8 +321,56 @@ def main(argv=None) -> int:
                     help="async engine: time the run under the "
                          "coherence-profile planes "
                          "(ops.step.run_cycles_profile)")
+    ap.add_argument("--serve", action="store_true",
+                    help="measure the batched serving layer: the fixed "
+                         "traffic mix through serve.serve() waves, in "
+                         "jobs/sec")
+    ap.add_argument("--serve-slots", type=int, default=8,
+                    help="batch slots a wave for --serve / --soak "
+                         "(default 8; 1 = the sequential baseline)")
+    ap.add_argument("--serve-jobs", type=int, default=None,
+                    help="jobs in the --serve traffic mix (default 2x "
+                         "slots so every slot turns over once)")
+    ap.add_argument("--soak", action="store_true",
+                    help="open-loop latency bench: release the mixed "
+                         "stream at --arrival-rate through the soak "
+                         "harness and report p95 job latency in ms")
+    ap.add_argument("--arrival-rate", type=float, default=20.0,
+                    help="--soak: jobs per second released (default 20)")
+    ap.add_argument("--soak-duration", type=float, default=2.0,
+                    help="--soak: arrival window in seconds (default 2); "
+                         "the run drains fully after")
+    ap.add_argument("--daemon", action="store_true",
+                    help="--soak: route the stream through an "
+                         "in-process serving daemon on a temporary unix "
+                         "socket")
+    ap.add_argument("--max-cycles", type=int, default=None,
+                    help="--serve / --soak: the per-job cycle budget "
+                         "(default 100000)")
+    ap.add_argument("--serve-out-dir", default=None, metavar="DIR",
+                    help="--serve: the warm pass writes its per-job "
+                         "dumps and metrics docs here (serve --out-dir)")
+    ap.add_argument("--serve-no-warm", action="store_true",
+                    help="--serve: no warm pass, every pass timed (the "
+                         "jobs' traces already drawn in this process by "
+                         "an earlier --serve of the same mix and shape)")
     args = ap.parse_args(argv)
     dev = torch.device(args.device)
+    if args.serve and args.soak:
+        print("error: --serve and --soak are exclusive (closed-loop "
+              "jobs/sec vs open-loop latency)", file=sys.stderr)
+        return 2
+    if args.daemon and not args.soak:
+        print("error: --daemon is a --soak transport", file=sys.stderr)
+        return 2
+    if args.serve_no_warm and (args.serve_out_dir or not args.serve):
+        print("error: --serve-no-warm is a --serve option, and "
+              "--serve-out-dir needs the warm pass", file=sys.stderr)
+        return 2
+    if args.serve:
+        return serve_main(args, dev)
+    if args.soak:
+        return soak_main(args, dev)
     if args.replicas < 1:
         print("error: --replicas must be at least 1", file=sys.stderr)
         return 2
@@ -497,6 +577,187 @@ def async_main(args, dev: torch.device) -> int:
         doc["profile"] = profile_steps(step_fn, st, args.profile)
     print(json.dumps(doc))
     return 0
+
+
+def _serving_setup(args):
+    """(max_cycles, queue capacity) of the serving benches: the JAX
+    bench's budget and its queue rule (the false_sharing member makes
+    every node hammer one home block, so capacity scales with nodes)."""
+    return args.max_cycles or 100_000, max(64, 2 * args.nodes)
+
+
+def wave_cycles(doc: dict, chunk: int) -> int:
+    """Wave cycles a serve pass ran: each wave runs whole chunks until
+    its slowest job is done (the jobs' counters stop at their own)."""
+    return sum(chunk * -(-max(doc["jobs"][j]["cycles"] for j in w["jobs"])
+                         // chunk) for w in doc["waves"])
+
+
+def serve_main(args, dev: torch.device) -> int:
+    """``--serve``: jobs/sec through the batched serving layer."""
+    from ue22cs343bb1_openmp_assignment_tpu_torch import serve as serve_mod
+    from ue22cs343bb1_openmp_assignment_tpu_torch import state as st
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import step
+    n_jobs = args.serve_jobs or 2 * args.serve_slots
+    specs = serve_mod.mixed_jobs(n_jobs, nodes=args.nodes,
+                                 trace_len=args.trace_len)
+    max_cycles, qcap = _serving_setup(args)
+
+    def one_pass(out_dir=None):
+        _sync(dev)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        doc = serve_mod.serve(specs, slots=args.serve_slots,
+                              chunk=args.chunk, max_cycles=max_cycles,
+                              queue_capacity=qcap, device=dev,
+                              out_dir=out_dir)
+        _sync(dev)
+        return time.perf_counter() - t0, doc, launch_counts()
+
+    # the warm pass draws every job's trace (later passes reuse them)
+    warm_s, doc0, warm_launches = ((None, None, None) if args.serve_no_warm
+                                   else one_pass(args.serve_out_dir))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    runs = [one_pass() for _ in range(args.reps)]
+    wall = statistics.median(r[0] for r in runs)
+    doc = runs[0][1]
+    if any(r[1]["jobs"] != (doc0 or doc)["jobs"] for r in runs):
+        print("error: the passes' job documents differ", file=sys.stderr)
+        return 1
+    cycles = wave_cycles(doc, args.chunk)
+    out = {"metric": f"serve jobs/sec @{args.nodes}x{args.trace_len} "
+                     f"x{n_jobs} jobs (async engine, mixed traffic)",
+           "jobs_per_sec": n_jobs / wall, "padding_waste":
+           doc["padding_waste"], "wall_s": wall,
+           "reps_s": [r[0] for r in runs], "warm_s": warm_s,
+           "slots": args.serve_slots, "jobs": n_jobs,
+           "jobs_quiesced": doc["jobs_quiesced"],
+           "waves": doc["wave_count"], "wave_cycles": cycles,
+           "ms_per_wave_cycle": wall * 1e3 / cycles,
+           "mb_dropped": doc["mb_dropped"],
+           "instrs_retired": sum(j["metrics"]["instrs_retired"]
+                                 for j in doc["jobs"].values()),
+           "launches_warm": warm_launches, "launches": runs[0][2],
+           "peak_device_bytes": (torch.cuda.max_memory_allocated(dev)
+                                 if dev.type == "cuda" else None),
+           "card": card_name_and_limit(dev), "engine": "async",
+           "config": {"nodes": args.nodes, "trace_len": args.trace_len,
+                      "chunk": args.chunk, "queue_capacity": qcap,
+                      "max_cycles": max_cycles}}
+    if args.profile:
+        # a full batch of the mix's first jobs, C wave cycles, beside C
+        # cycles of one machine of the same shape
+        scfg = serve_mod.slot_config(specs, queue_capacity=qcap)
+        batch = st.stack_states([
+            serve_mod.build_job_state(scfg, scfg, specs[i % n_jobs], dev)
+            for i in range(args.serve_slots)])
+        out["profile"] = profile_steps(
+            lambda b: step._masked_cycles(scfg, b, 1, max_cycles, None),
+            batch, args.profile)
+        out["profile_solo"] = profile_steps(
+            lambda s: step.cycle(scfg, s),
+            serve_mod.build_job_state(scfg, scfg, specs[0], dev),
+            args.profile)
+    print(json.dumps(out))
+    return 0 if doc["jobs_quiesced"] == doc["jobs_total"] else 1
+
+
+def soak_main(args, dev: torch.device) -> int:
+    """``--soak``: open-loop job latency through the soak harness, in
+    process or (``--daemon``) through a daemon on a unix socket."""
+    import dataclasses as _dc
+    import os
+    import tempfile
+    import threading
+    from ue22cs343bb1_openmp_assignment_tpu_torch import soak as soak_mod
+    from ue22cs343bb1_openmp_assignment_tpu_torch.obs.clock import (
+        VirtualClock)
+    max_cycles, qcap = _serving_setup(args)
+    arrivals = soak_mod.soak_stream(
+        args.arrival_rate, args.soak_duration, nodes=args.nodes,
+        trace_len=args.trace_len, seed=0)
+    daemon = None
+    tmp = tempfile.TemporaryDirectory(prefix="cache-sim-bench-")
+    if args.daemon:
+        from ue22cs343bb1_openmp_assignment_tpu_torch.daemon.client import (
+            DaemonClient)
+        from ue22cs343bb1_openmp_assignment_tpu_torch.daemon.core import (
+            DaemonCore)
+        from ue22cs343bb1_openmp_assignment_tpu_torch.daemon.server import (
+            DaemonServer)
+        sock = os.path.join(tmp.name, "daemon.sock")
+        server = DaemonServer(
+            DaemonCore(slots=args.serve_slots, chunk=args.chunk,
+                       max_cycles=max_cycles, queue_capacity=qcap,
+                       device=dev), sock, quiet=True)
+        thread = threading.Thread(target=server.run, daemon=True,
+                                  name="bench-daemon")
+        thread.start()
+        daemon = (sock, server, thread)
+
+    def run(clock=None):
+        return soak_mod.soak(arrivals, slots=args.serve_slots,
+                             chunk=args.chunk, max_cycles=max_cycles,
+                             queue_capacity=qcap,
+                             arrival_rate=args.arrival_rate, clock=clock,
+                             device=dev)
+
+    try:
+        t0 = time.perf_counter()
+        if daemon:
+            # one throwaway job of the stream shape warms the daemon's
+            # bucket before latencies are sampled
+            with DaemonClient(daemon[0]) as c:
+                c.wait_up()
+                c.submit(_dc.replace(arrivals[0][1], name="warmup000"))
+                c.wait("warmup000", timeout_s=300.0)
+        else:
+            run(VirtualClock())
+        warm_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if daemon:
+            doc = soak_mod.soak_daemon(arrivals, daemon[0],
+                                       arrival_rate=args.arrival_rate)
+        else:
+            doc = run()
+        wall = time.perf_counter() - t0
+    finally:
+        if daemon:
+            sock, server, thread = daemon
+            try:
+                with DaemonClient(sock) as c:
+                    c.shutdown()
+            except (ConnectionError, OSError):
+                server.stop()
+            thread.join(30.0)
+        tmp.cleanup()
+    lat = doc["latency"]
+    if lat is None:
+        print("error: the soak released no jobs (duration too short "
+              "for the arrival rate)", file=sys.stderr)
+        return 1
+    out = {"metric": f"soak p95 job latency @{args.nodes}x"
+                     f"{args.trace_len} (async engine, mixed traffic, "
+                     f"open loop)",
+           "p95_ms": lat["p95_ms"], "latency": lat,
+           "verdict": doc["verdict"], "jobs": doc["jobs_total"],
+           "jobs_quiesced": doc["jobs_quiesced"],
+           "rejected": len(doc.get("rejected") or []),
+           "waves": doc["wave_count"], "wall_s": wall, "warm_s": warm_s,
+           "mb_dropped": doc["mb_dropped"],
+           "padding_waste": doc["padding_waste"],
+           "transport": "daemon" if args.daemon else "inproc",
+           "card": card_name_and_limit(dev),
+           "config": {"nodes": args.nodes, "trace_len": args.trace_len,
+                      "chunk": args.chunk, "slots": args.serve_slots,
+                      "arrival_rate": args.arrival_rate,
+                      "duration_s": args.soak_duration,
+                      "queue_capacity": qcap, "max_cycles": max_cycles}}
+    if args.daemon:
+        out["bucket_growths"] = doc["daemon_stats"]["bucket_growths"]
+    print(json.dumps(out))
+    return 0 if doc["jobs_quiesced"] == doc["jobs_total"] else 1
 
 
 if __name__ == "__main__":

@@ -38,12 +38,20 @@ incident directory (``incident.json`` with the last ``--flight-ring``
 cycles of telemetry, the metrics doc, the transaction summary and the
 coherence profile, and ``trace.perfetto.json``).
 
+The serving verbs run the batched serving layer and the daemon:
+``serve`` (``serve.py``: a job stream in fixed-shape vmapped waves),
+``soak`` (``soak.py``: an open-loop arrival stream, in process or
+through a daemon), ``daemon`` (``daemon/server.py``: the long-lived
+server), its clients ``submit`` and ``watch`` (``daemon/client.py``) and
+``top`` (``obs/fleet.py``: the merged stats of one or more daemons).
+Like the engines, ``serve``, ``soak`` and ``daemon`` run on the card
+unless given ``--cpu``.
+
 Not ported yet (ROADMAP.md, Queue 1): the verbs that dispatch to the
-analysis, the other observability, serving and daemon modules
-(``analyze``, ``bench-diff``, ``perf-report``, ``dashboard``,
-``replay``, ...; each exits 2 with a note), and ``--engine omp``, which
-builds the reference's own ``assignment.c``, not part of this
-repository.
+analysis and the other observability modules (``analyze``,
+``bench-diff``, ``perf-report``, ``dashboard``) and ``replay``; each
+exits 2 with a note. Nor ``--engine omp``, which builds the reference's
+own ``assignment.c``, not part of this repository.
 """
 
 from __future__ import annotations
@@ -59,8 +67,13 @@ import numpy as np
 #: the JAX CLI's verbs, which dispatch to modules the port does not have
 #: yet (ROADMAP.md, Queue 1 items 4-7)
 LATER_VERBS = ("analyze", "bench-diff", "perf-report", "dashboard",
-               "serve", "soak", "daemon", "submit", "watch", "top",
                "replay")
+
+#: the serving verbs (JAX ``cli.py:634-655``): verb -> (module, function)
+SERVING_VERBS = {
+    "serve": ("serve", "main"), "soak": ("soak", "main"),
+    "daemon": ("daemon.server", "main"), "submit": ("daemon.client", "main"),
+    "watch": ("daemon.client", "main_watch"), "top": ("obs.fleet", "main")}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -741,6 +754,11 @@ def main(argv=None) -> int:
     from ue22cs343bb1_openmp_assignment_tpu_torch.obs import verbs
     if raw[:1] and raw[0] in verbs.VERBS:
         return verbs.main(raw[0], raw[1:])
+    if raw[:1] and raw[0] in SERVING_VERBS:
+        import importlib
+        mod, fn = SERVING_VERBS[raw[0]]
+        return getattr(importlib.import_module(
+            f"ue22cs343bb1_openmp_assignment_tpu_torch.{mod}"), fn)(raw[1:])
     if raw[:1] and raw[0] in LATER_VERBS:
         print(f"error: {raw[0]} is not ported yet; see ROADMAP.md",
               file=sys.stderr)

@@ -144,12 +144,20 @@ def arrival_order(key_recv, prio, valid, span: int,
 def ring_scatter(mb_pack, mb_count, tgt_r, tgt_p, accept, pack):
     """Write ``pack`` [P, F] into the rings at (tgt_r, tgt_p) [F] and add
     ``accept`` to the counts; dropped lanes carry tgt_r == N (the spare
-    row, sliced off). Kept lanes are unique."""
+    row, sliced off). Kept lanes are unique.
+
+    The store goes through a plane-last view so that the indexed axes
+    lead, and the counts through ``scatter_add_``: the same writes and
+    adds as a leading-slice store and ``index_add_``, in the forms that
+    ``torch.func.vmap`` batches as one launch each (the serving layer's
+    wave runs ``cycle`` over a job axis; vmap runs ``index_add_`` with a
+    batched index once per job)."""
     P, N, Q = mb_pack.shape
     out = torch.cat([mb_pack, mb_pack.new_zeros((P, 1, Q))], dim=1)
-    out[:, tgt_r.to(torch.int64), tgt_p.to(torch.int64)] = pack
+    out.permute(1, 2, 0)[tgt_r.to(torch.int64),
+                         tgt_p.to(torch.int64)] = pack.transpose(0, 1)
     cnt = torch.cat([mb_count, mb_count.new_zeros(1)])
-    cnt.index_add_(0, tgt_r.to(torch.int64), accept.to(I32))
+    cnt.scatter_add_(0, tgt_r.to(torch.int64), accept.to(I32))
     return out[:, :N], cnt[:N]
 
 

@@ -38,6 +38,12 @@ rides the carry. The JAX scatter-adds with ``mode="drop"`` become
 index (one launch each; the int32 adds are exact in any order), and the
 last-writer scatter-min goes through a spare tail slot that is sliced
 off.
+
+The serving layer's wave runners (JAX ``ops/step.py:885-1008``):
+``batched_wave`` / ``run_wave_to_quiescence`` and ``batched_wave_chunk``
+/ ``run_wave_chunk`` step a batch of independent machines as one
+``cycle`` under ``torch.func.vmap`` over the job axis, freezing the jobs
+that are done each cycle; the host reads the [B] done mask once a chunk.
 """
 
 from __future__ import annotations
@@ -48,9 +54,9 @@ from ue22cs343bb1_openmp_assignment_tpu_torch import codec
 from ue22cs343bb1_openmp_assignment_tpu_torch.config import SystemConfig
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (frontend, handlers,
                                                           mailbox)
-from ue22cs343bb1_openmp_assignment_tpu_torch.state import (LAT_BUCKETS,
-                                                            SimState,
-                                                            floor_log2)
+from ue22cs343bb1_openmp_assignment_tpu_torch.state import (
+    LAT_BUCKETS, SIM_LEAVES, SimState, batch_quiescent, floor_log2,
+    from_leaves, state_leaves)
 from ue22cs343bb1_openmp_assignment_tpu_torch.types import (CacheState,
                                                             DirState, Msg,
                                                             Op)
@@ -589,3 +595,103 @@ def run_to_quiescence(cfg: SystemConfig, state: SimState,
     """Run until no work remains, stopping exactly at max_cycles."""
     return run_chunked_to_quiescence(cfg, state, 1, max_cycles,
                                      message_phase)
+
+
+# -- batched wave runners (the serving layer) -------------------------------
+#
+# JAX ops/step.py:885-1008. A [B, ...] batch of independent machines
+# (state.stack_states) steps as ONE ``cycle`` under torch.func.vmap over
+# the job axis: the Python body of ``cycle`` runs once a wave cycle, and
+# a wave cycle's launches (one machine's cycle's, the freeze's and the
+# done mask's) do not grow with B.
+# Each cycle freezes the jobs that are done (quiescent, or at
+# ``max_cycles``): they keep their old leaves. A quiescent state is a
+# fixpoint of ``cycle`` apart from the cycle counters, so every job ends
+# bit-identical to its solo run at chunk 1, cycle count included.
+
+#: leaves ``cycle`` reads and never writes (JAX ``_RO_FIELDS``): they go
+#: into the vmapped cycle, and only the other leaves come back
+_RO_FIELDS = ("instr_op", "instr_addr", "instr_val", "issue_delay",
+              "issue_period", "arb_rank", "order_rank")
+_RW = tuple(i for i, f in enumerate(SIM_LEAVES) if f not in _RO_FIELDS)
+
+
+def _wave_cycle(cfg: SystemConfig, message_phase):
+    """``cycle`` vmapped over the job axis, as a function of a batch's
+    leaves (state.SIM_LEAVES order) returning the leaves at _RW."""
+    if cfg.drop_prob > 0.0:
+        raise ValueError("the wave runners step fault-free configs: "
+                         "drop_prob > 0 draws inside the cycle, which "
+                         "no wave supports (ROADMAP.md, Queue 1 item 5)")
+
+    def one(*leaves):
+        out = state_leaves(cycle(cfg, from_leaves(leaves),
+                                 message_phase=message_phase))
+        return tuple(out[i] for i in _RW)
+    return torch.func.vmap(one)
+
+
+def _wave_done(bstate: SimState, max_cycles: int) -> torch.Tensor:
+    """[B] bool: the job is quiescent or out of its cycle budget."""
+    return batch_quiescent(bstate) | (bstate.cycle >= max_cycles)
+
+
+def _masked_cycles(cfg: SystemConfig, bstate: SimState, chunk: int,
+                   max_cycles: int, message_phase) -> SimState:
+    """``chunk`` wave cycles, each freezing the jobs done before it;
+    no host read."""
+    step_all = _wave_cycle(cfg, message_phase)
+    leaves = list(state_leaves(bstate))
+    for _ in range(chunk):
+        done = _wave_done(from_leaves(leaves), max_cycles)
+        for i, new in zip(_RW, step_all(*leaves)):
+            keep = done.reshape(done.shape + (1,) * (new.ndim - 1))
+            leaves[i] = torch.where(keep, leaves[i], new)
+    return from_leaves(leaves)
+
+
+def batched_wave(cfg: SystemConfig, bstate: SimState, chunk: int,
+                 max_cycles: int, message_phase=None) -> SimState:
+    """Run a [B, ...] batch of independent machines until every job is
+    quiescent or at ``max_cycles`` (JAX ``ops/step.py:885``): chunks of
+    ``chunk`` masked wave cycles, the [B] live mask read on the host once
+    before each chunk, where the JAX ``while_loop`` tests it. Every job's
+    final state equals its solo ``run_to_quiescence``."""
+    while bool((~_wave_done(bstate, max_cycles)).any()):
+        bstate = _masked_cycles(cfg, bstate, chunk, max_cycles,
+                                message_phase)
+    return bstate
+
+
+def run_wave_to_quiescence(cfg: SystemConfig, bstate: SimState,
+                           chunk: int = 32, max_cycles: int = 100_000,
+                           message_phase=None) -> SimState:
+    """``batched_wave`` (JAX ``ops/step.py:937``, where it is the jitted
+    form with the batch donated). The batch passed in is not written,
+    but the result shares its read-only leaves (_RO_FIELDS) with it: a
+    later ``state.set_state`` on the result writes through to it."""
+    return batched_wave(cfg, bstate, chunk, max_cycles, message_phase)
+
+
+def batched_wave_chunk(cfg: SystemConfig, bstate: SimState, chunk: int,
+                       max_cycles: int, message_phase=None) -> tuple:
+    """Exactly one ``chunk``-cycle masked slice of a wave (JAX
+    ``ops/step.py:954``): the scheduler owns the loop, and between chunks
+    the daemon swaps finished jobs out and queued jobs in
+    (``state.set_state``) while the other slots are mid-flight. Returns
+    ``(bstate, quiescent, done)``, the two [B] bool masks on the batch's
+    device (done: quiescent or out of cycle budget); reading them is the
+    one host read a chunk."""
+    bstate = _masked_cycles(cfg, bstate, chunk, max_cycles, message_phase)
+    quiet = batch_quiescent(bstate)
+    return bstate, quiet, quiet | (bstate.cycle >= max_cycles)
+
+
+def run_wave_chunk(cfg: SystemConfig, bstate: SimState, chunk: int = 16,
+                   max_cycles: int = 100_000, message_phase=None) -> tuple:
+    """``batched_wave_chunk`` (JAX ``ops/step.py:995``, the jitted form
+    with the batch donated). The batch passed in is not written, but the
+    result shares its read-only leaves (_RO_FIELDS) with it: a later
+    ``state.set_state`` on the result writes through to it."""
+    return batched_wave_chunk(cfg, bstate, chunk, max_cycles,
+                              message_phase)

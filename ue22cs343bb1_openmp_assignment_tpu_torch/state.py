@@ -7,6 +7,10 @@ node *t* starts at ``(20*t + i) & 0xFF``, directory entries start
 Unowned with empty sharer bitvectors, cache lines start INVALID with the
 sentinel address. The transactional engine keeps an exact directory and
 builds only the memory image and the instruction tables from here.
+
+The batch helpers (``stack_states``, ``index_state``, ``set_state``,
+``batch_size``, ``batch_quiescent``) give a SimState a leading job axis:
+the serving layer's waves (``ops.step.batched_wave``).
 """
 
 from __future__ import annotations
@@ -236,6 +240,71 @@ def init_state(cfg: SystemConfig, traces=None, issue_delay=None,
         cycle=torch.zeros((), dtype=i32, device=dev),
         metrics=Metrics.zeros(dev),
     )
+
+
+# -- batching: a leading job axis over the whole machine -------------------
+#
+# JAX state.py:303-360. Every SimState leaf keys its minor axes off the
+# node axis, so the whole machine (caches, directory, traces, mailboxes,
+# fault key, metrics) batches under one extra leading axis: a [B, ...]
+# SimState of B independent machines, which ops.step's wave runners step
+# with ``torch.func.vmap(cycle)``. The helpers below are the way in and
+# out of the batch. ``state_leaves`` / ``from_leaves`` flatten a state
+# to the tuple of tensors that vmap maps over (SIM_LEAVES order).
+
+#: every leaf of a SimState in ``state_leaves`` order
+SIM_LEAVES = SIM_FIELDS + tuple(f"metrics.{f}" for f in SIM_METRIC_FIELDS)
+
+
+def state_leaves(state: SimState) -> tuple:
+    """The state's tensors in SIM_LEAVES order."""
+    return (tuple(getattr(state, f) for f in SIM_FIELDS)
+            + tuple(getattr(state.metrics, f) for f in SIM_METRIC_FIELDS))
+
+
+def from_leaves(leaves) -> SimState:
+    """Inverse of ``state_leaves``."""
+    n = len(SIM_FIELDS)
+    return SimState(**dict(zip(SIM_FIELDS, leaves[:n])),
+                    metrics=Metrics(**dict(zip(SIM_METRIC_FIELDS,
+                                               leaves[n:]))))
+
+
+def stack_states(states) -> SimState:
+    """Stack per-job SimStates (identical shapes, one device) into one
+    batched state with a leading job axis: leaf [..] -> [B, ..]."""
+    return from_leaves(tuple(torch.stack(xs)
+                             for xs in zip(*map(state_leaves, states))))
+
+
+def index_state(bstate: SimState, i: int) -> SimState:
+    """Job ``i`` of a batched state, as a copy: a later ``set_state`` or
+    wave step cannot change it (the JAX contract, where the donated
+    batch is never read again)."""
+    return from_leaves(tuple(x[i].clone() for x in state_leaves(bstate)))
+
+
+def set_state(bstate: SimState, i: int, state: SimState) -> SimState:
+    """Write ``state`` into slot ``i`` of the batch, in place, and return
+    the batch: the admission primitive of the serving layer. A wave
+    runner's output batch shares its read-only leaves (the instruction
+    and issue tables, ``ops.step._RO_FIELDS``) with the batch it was
+    given, so this write reaches every earlier batch of the same run;
+    only ``index_state`` copies are left as they were."""
+    for b, s in zip(state_leaves(bstate), state_leaves(state)):
+        b[i].copy_(s)
+    return bstate
+
+
+def batch_size(bstate: SimState) -> int:
+    return bstate.cache_addr.shape[0]
+
+
+def batch_quiescent(bstate: SimState) -> torch.Tensor:
+    """[B] bool: ``SimState.quiescent`` of each job of a batched state."""
+    exhausted = bstate.instr_idx >= bstate.instr_count - 1
+    return ((bstate.mb_count == 0).all(-1) & (~bstate.waiting).all(-1)
+            & exhausted.all(-1))
 
 
 # -- bitvector helpers: uint32 words held as int32 patterns ---------------
