@@ -165,7 +165,7 @@ Phases (each prints its own line; any failure exits non-zero):
    ``set_state`` swap leaves the neighbours' leaves equal to an
    unswapped batch's; the serving run through the port's bench (``bench
    --serve``: the JAX mix and queue rule, 512 jobs through 256 slots,
-   one warm pass and the median of 2, a torch.profiler window of wave
+   one warm pass and one timed pass, a torch.profiler window of wave
    cycles beside solo cycles): jobs/sec, waves, padding_waste, ms and
    device launches a wave cycle, threefry launches (the warm pass draws
    the traces, the timed passes reuse them: 0), peak device memory,
@@ -176,7 +176,22 @@ Phases (each prints its own line; any failure exits non-zero):
    ``soak_daemon`` stream of two job shapes: every result's digest equal
    to SERVE_REFERENCE, ``stats`` and ``top`` documents valid, the
    client-observed p50/p95/p99, rejections and bucket growths, drained
-   and shut down.
+   and shut down;
+13. history (slice 13; sizes in HISTORY): ``bench --reps 3 --record H``
+   twice at deep@4096 (the round kernel), both entries valid with one
+   fingerprint and equal instrs_retired, ``bench-diff --history H
+   --against-last`` exit 0 or 4 with its verdict and medians;
+   ``bench --read-storm`` (the fold kernels: the fused round refuses
+   the storm) and 16 library rounds of its config with the kernel folds
+   against the plain folds, every leaf; 16 arrivals of
+   ``serve.mixed_jobs`` at 32 x 32 through 8 slots recorded on the card
+   by a DaemonCore with a RecordingWriter on a VirtualClock (a child
+   process), replayed in process on the card (``cache-sim-torch
+   replay``: every digest matched, threefry launched) and with
+   ``--cpu`` (a child process): equal replay documents; ``bench-diff
+   --latency`` of the recorded against the replayed entry exit 0 or 4;
+   ``state.continue_with_traces`` on the async engine at 256 x 64, two
+   phases, every leaf equal to the CPU's (a child process).
 
 Each phase's seconds are printed after the last phase.
 ``python3 chip_smoke.py --serve-run 1024`` runs only the serving run,
@@ -3191,17 +3206,17 @@ SERVE_REFERENCE = {
 #: mix through 8 slots; the solo runs split over ``solo_children``
 #: child processes), the serving run (the JAX ``--serve`` mix and queue
 #: rule, 256 slots; cut from 1024 jobs to ``run_jobs``, two full waves,
-#: and from the median of 3 to ``reps`` timed passes, for the phase's
+#: and from the median of 3 to ``reps`` timed passes, for the script's
 #: time: PERF.md section 4; ``chip_smoke.py --serve-run 1024`` runs the
 #: whole mix alone), the one-slot baseline (the first ``base_jobs``
 #: jobs, one of each workload of the mix, cut from 64; one timed pass
 #: and no warm pass, the serving run having drawn their traces) and the
 #: daemon soak (two job shapes, ``rate`` jobs/s each for ``window_s``
-#: seconds)
+#: seconds, cut from 10 for the script's time)
 SERVE = dict(nodes=32, trace_len=32, chunk=32, check_jobs=16, check_slots=8,
-             solo_children=2, run_jobs=512, run_slots=256, reps=2,
+             solo_children=2, run_jobs=512, run_slots=256, reps=1,
              profile=16, base_jobs=4, small=16, rate=50.0,
-             window_s=10.0, daemon_slots=256, daemon_chunk=16,
+             window_s=5.0, daemon_slots=256, daemon_chunk=16,
              soak_timeout_s=300.0, child_timeout_s=400.0, cpu_threads=2)
 
 
@@ -3666,6 +3681,357 @@ def phase_serve(card: str) -> None:
     say("serve", f"serve phase took {time.perf_counter() - t0:.1f} s")
 
 
+#: the history phase (slice 13): the bench history at deep@4096 (the
+#: bench's defaults, ``reps`` timed runs each, twice), the read storm
+#: (``storm_rounds`` library rounds of the kernel folds against the
+#: plain folds, which cost 150-200 ms a launch), the recording
+#: (``rec_jobs`` arrivals of serve.mixed_jobs at rec_nodes x
+#: rec_trace_len, ``rec_gap_s`` apart, through ``rec_slots`` slots,
+#: chunk ``rec_chunk``, on a VirtualClock) and continue_with_traces on
+#: the async engine (cwt_nodes x cwt_trace_len, two phases, chunk
+#: ``cwt_chunk``); the --cpu runs in child processes with
+#: ``cpu_threads`` threads each; the phase itself runs in a child
+#: process of its own, stopped after ``phase_timeout_s``
+HISTORY = dict(reps=3, storm_rounds=16, rec_jobs=16, rec_nodes=32,
+               rec_trace_len=32, rec_slots=8, rec_chunk=16, rec_gap_s=0.005,
+               cwt_nodes=256, cwt_trace_len=64, cwt_chunk=64,
+               cpu_threads=1, child_timeout_s=400.0,
+               phase_timeout_s=600.0)
+
+
+def history_arrivals() -> list:
+    """The recorded stream: serve.mixed_jobs (uniform, false_sharing,
+    producer_consumer, hotspot; seed i) at HISTORY["rec_gap_s"] apart,
+    alternating over the interactive and batch lanes, named ``rec.*``
+    (a name of its own: the serve phase's jobs of the same mix have had
+    their traces drawn in this process, and the replay must draw its
+    own)."""
+    from ue22cs343bb1_openmp_assignment_tpu_torch import serve
+    H = HISTORY
+    specs = serve.mixed_jobs(H["rec_jobs"], nodes=H["rec_nodes"],
+                             trace_len=H["rec_trace_len"])
+    return [(i * H["rec_gap_s"], dataclasses.replace(s, name=f"rec.{s.name}"),
+             ("interactive", "batch")[i % 2]) for i, s in enumerate(specs)]
+
+
+def continue_run(device) -> tuple:
+    """continue_with_traces on the async engine: the bench's async
+    config at HISTORY["cwt_nodes"], phase 1 the ``uniform`` traces of
+    seed 0 to quiescence, phase 2 those of seed 1 swapped in and run to
+    quiescence; (leaves after phase 1, leaves after phase 2, cycles of
+    each phase)."""
+    from ue22cs343bb1_openmp_assignment_tpu_torch import bench, convert
+    from ue22cs343bb1_openmp_assignment_tpu_torch import state as st
+    from ue22cs343bb1_openmp_assignment_tpu_torch.models.system import (
+        CoherenceSystem)
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import step
+    H = HISTORY
+    cfg = bench.async_config(H["cwt_nodes"], H["cwt_trace_len"])
+
+    def machine(seed):
+        return CoherenceSystem.from_workload(cfg, "uniform", seed=seed,
+                                             device=device,
+                                             local_frac=0.8).state
+    s1 = step.run_chunked_to_quiescence(cfg, machine(0), H["cwt_chunk"],
+                                        100_000)
+    nxt = machine(1)
+    s2 = st.continue_with_traces(cfg, s1, instr_arrays=(
+        nxt.instr_op, nxt.instr_addr, nxt.instr_val, nxt.instr_count))
+    s2 = step.run_chunked_to_quiescence(cfg, s2, H["cwt_chunk"], 100_000)
+    if not (bool(s1.quiescent()) and bool(s2.quiescent())):
+        raise SmokeFailure("continue_with_traces: a phase did not quiesce")
+    c1 = int(s1.metrics.cycles)
+    return (convert.sim_numpy_leaves(s1), convert.sim_numpy_leaves(s2),
+            c1, int(s2.metrics.cycles) - c1)
+
+
+def history_child(spec_path: str) -> int:
+    """A child process of the history phase. Task "record": the
+    recording on the card (a DaemonCore with a RecordingWriter, driven
+    by ``daemon.core.drive`` on a VirtualClock) into "rec". Task
+    "replay_cpu": ``cache-sim-torch replay REC --cpu --out OUT``. Task
+    "continue_cpu": ``continue_run`` on the CPU, its leaves written to
+    "result" (npz)."""
+    import numpy as np
+    import torch
+    with open(spec_path) as f:
+        spec = json.load(f)
+    H = spec["sizes"]
+    if spec["task"] == "record":
+        from ue22cs343bb1_openmp_assignment_tpu_torch.daemon.core import (
+            DaemonCore, attach_recorder, drive)
+        from ue22cs343bb1_openmp_assignment_tpu_torch.obs.clock import (
+            VirtualClock)
+        core = DaemonCore(slots=H["rec_slots"], chunk=H["rec_chunk"],
+                          clock=VirtualClock(), device="cuda")
+        attach_recorder(core, spec["rec"])
+        drive(core, history_arrivals())
+        core.recorder.close()
+        return 0 if core.recorder.results == H["rec_jobs"] else 1
+    torch.set_num_threads(H["cpu_threads"])
+    if spec["task"] == "replay_cpu":
+        from ue22cs343bb1_openmp_assignment_tpu_torch import cli
+        return cli.main(["replay", spec["rec"], "--cpu", "--out",
+                         spec["out"]])
+    one, two, c1, c2 = continue_run("cpu")
+    np.savez(spec["result"], cycles=np.array([c1, c2]),
+             **{f"p1__{k}": v for k, v in one.items()},
+             **{f"p2__{k}": v for k, v in two.items()})
+    return 0
+
+
+def _history_child(tmp: str, task: str, **paths):
+    """Start one history child: (process, result path, log path)."""
+    import os
+    spec = os.path.join(tmp, f"{task}.spec.json")
+    result = os.path.join(tmp, f"{task}.result.npz")
+    with open(spec, "w") as f:
+        json.dump({"task": task, "sizes": HISTORY, "result": result,
+                   **paths}, f)
+    log = open(os.path.join(tmp, f"{task}.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "sys.exit(chip_smoke.history_child(sys.argv[1]))", spec],
+        cwd=os.path.dirname(os.path.abspath(__file__)), stdout=log,
+        stderr=subprocess.STDOUT)
+    log.close()
+    return proc, result, log.name
+
+
+def _bench_line(argv: list) -> tuple:
+    """``bench.main(argv)`` on the card in this process: (its JSON line,
+    every kernel's launches in its last timed run: the bench sets the
+    counts to 0 before each of its runs)."""
+    import contextlib
+    import io
+    from ue22cs343bb1_openmp_assignment_tpu_torch import bench
+    buf = io.StringIO()
+    bench.reset_launch_counts()
+    with contextlib.redirect_stdout(buf):
+        rc = bench.main(argv + ["--device", "cuda"])
+    launches = bench.launch_counts()
+    if rc != 0:
+        raise SmokeFailure(f"bench {' '.join(argv)}: exit {rc}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1]), launches
+
+
+def _bench_history(tmp: str, card: str) -> None:
+    """Two recorded bench runs at deep@4096 and bench-diff of the two."""
+    import contextlib
+    import io
+    import os
+    from ue22cs343bb1_openmp_assignment_tpu_torch.obs import (
+        bench_diff, history)
+    H = HISTORY
+    path = os.path.join(tmp, "history.jsonl")
+    lines = []
+    for _ in range(2):
+        line, launches = _bench_line(["--reps", str(H["reps"]), "--record",
+                                      path])
+        _check_launches("history: bench deep@4096", launches,
+                        {"round": ">0"})
+        lines.append((line, launches))
+    entries = history.load(path)
+    for e in entries:
+        history.validate_entry(e)
+    if len(entries) != 2 or entries[0]["config"] != entries[1]["config"]:
+        raise SmokeFailure("history: the two entries' fingerprints differ")
+    if entries[0]["retired"] != entries[1]["retired"] or \
+            entries[0]["steps"] != entries[1]["steps"]:
+        raise SmokeFailure("history: instrs_retired differs between runs")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = bench_diff.main_bench_diff(["--history", path, "--against-last",
+                                         "--json"])
+    if rc not in (0, 4):
+        raise SmokeFailure(f"history: bench-diff --against-last exit {rc}")
+    rep = json.loads(buf.getvalue())
+    say("history", f"bench deep@4096 twice with --reps {H['reps']} --record: "
+        "both entries valid (cache-sim/bench/v1.4), one fingerprint "
+        f"({entries[0]['label']}, platform {entries[0]['config']['platform']}"
+        f", device_kind {entries[0]['device_kind']!r}), "
+        f"{entries[0]['retired']} instrs retired in {entries[0]['steps']} "
+        f"rounds both; instrs/sec {lines[0][0]['instrs_per_sec']:.1f} / "
+        f"{lines[1][0]['instrs_per_sec']:.1f}, ms/round "
+        f"{lines[0][0]['ms_per_round']:.4f} / "
+        f"{lines[1][0]['ms_per_round']:.4f}; bench-diff --against-last: "
+        f"{rep['verdict'].upper()} (exit {rc}), medians "
+        f"{rep['a']['median_s']} s -> {rep['b']['median_s']} s "
+        f"({rep['delta_pct']:+.3f} %), p {rep['p']}; launches a run (the "
+        f"last of each call): round {lines[0][1]['round']}, "
+        f"{lines[1][1]['round']} ({card})")
+
+
+def _read_storm(card: str) -> None:
+    """``bench --read-storm`` (the fold path) and 16 library rounds of
+    its config with the kernel folds against the plain folds."""
+    from ue22cs343bb1_openmp_assignment_tpu_torch import bench, convert
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import sync_engine as se
+    H = HISTORY
+    line, launches = _bench_line(["--read-storm", "--reps", "1"])
+    if line["fused_round"] or not line["config"]["read_storm"]:
+        raise SmokeFailure("read storm: the bench did not take the fold "
+                           "path with the storm on")
+    _check_launches("read storm bench", launches,
+                    {"pre": ">0", "flags": ">0", "replay": ">0"})
+    cfg = bench.deep_config(BENCH["num_nodes"], read_storm=True)
+    runs = {}
+    for impl in ("kernel", "plain"):
+        st0 = se.procedural_state(cfg, BENCH["trace_len"], device="cuda")
+        bench.reset_launch_counts()
+        runs[impl] = convert.numpy_leaves(
+            se.run_rounds(cfg, st0, H["storm_rounds"], impl))
+        counts = bench.launch_counts()
+        if impl == "kernel":
+            storm_launches = counts
+        else:
+            _check_launches("read storm, plain folds", counts, {})
+    for k in runs["plain"]:
+        if not (runs["plain"][k] == runs["kernel"][k]).all():
+            raise SmokeFailure(f"read storm: leaf {k} after "
+                               f"{H['storm_rounds']} rounds differs between "
+                               "the kernel and the plain folds")
+    say("history", f"bench --read-storm --reps 1 at deep@4096 (fold path): "
+        f"{line['instrs_per_sec']:.1f} instrs/sec, {line['rounds']} rounds, "
+        f"{line['ms_per_round']:.4f} ms/round; fold launches a run: pre "
+        f"{launches['pre']}, flags "
+        f"{launches['flags']}, replay {launches['replay']}; "
+        f"{H['storm_rounds']} library rounds, kernel folds = plain folds, "
+        f"every leaf (kernel folds: pre {storm_launches['pre']}, flags "
+        f"{storm_launches['flags']}, replay {storm_launches['replay']}) "
+        f"({card})")
+
+
+def _replay_on_card(tmp: str, rec: str, card: str) -> dict:
+    """``cache-sim-torch replay REC --out`` on the card: every digest
+    matched; bench-diff --latency of its recorded and replayed entries."""
+    import contextlib
+    import io
+    import os
+    from ue22cs343bb1_openmp_assignment_tpu_torch import bench, cli
+    out = os.path.join(tmp, "card_replay")
+    buf = io.StringIO()
+    bench.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["replay", rec, "--out", out])
+    wall = time.perf_counter() - t0
+    launches = bench.launch_counts()
+    if rc != 0:
+        raise SmokeFailure(f"replay on the card: exit {rc}: "
+                           f"{buf.getvalue()[-1000:]}")
+    with open(os.path.join(out, "replay.json")) as f:
+        doc = json.load(f)
+    if doc["digests_matched"] != HISTORY["rec_jobs"] or \
+            doc["digest_mismatches"]:
+        raise SmokeFailure(f"replay on the card: {doc['digests_matched']} "
+                           f"digests matched, mismatches "
+                           f"{doc['digest_mismatches'][:4]}")
+    _check_launches("replay on the card", launches, {"threefry": ">0"})
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["bench-diff", "--latency",
+                       os.path.join(out, "recorded.entry.json"),
+                       os.path.join(out, "replayed.entry.json")])
+    if rc not in (0, 4):
+        raise SmokeFailure(f"replay: bench-diff --latency exit {rc}")
+    lat = doc["latency"]
+    say("history", f"replay of the recording (serve.mixed_jobs("
+        f"{HISTORY['rec_jobs']}) at {HISTORY['rec_nodes']} x "
+        f"{HISTORY['rec_trace_len']}, {HISTORY['rec_slots']} slots, chunk "
+        f"{HISTORY['rec_chunk']}, VirtualClock) in process on the card: "
+        f"{doc['jobs_quiesced']}/{doc['jobs_total']} quiesced, digests "
+        f"{doc['digests_matched']}/{doc['recorded_jobs']} matched, "
+        f"{doc['wave_count']} chunks, p50/p95 {lat['p50_ms']:.2f}/"
+        f"{lat['p95_ms']:.2f} virtual ms, {wall:.2f} s wall; threefry "
+        f"launches {launches['threefry']}; bench-diff --latency recorded "
+        f"vs replayed: exit {rc} ({card})")
+    return doc
+
+
+def phase_history(card: str) -> None:
+    """The history phase in a fresh interpreter (``history_main``): the
+    host-bound bench and replay run up to half again slower at the end
+    of this long-lived process than in a new one (PERF.md section 7). Its
+    lines go to this process's stdout; a failure there fails here."""
+    import os
+    import signal
+    t0 = time.perf_counter()
+    # a process group of its own: a timeout stops its children too
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "sys.exit(chip_smoke.history_main(sys.argv[1]))", card],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        start_new_session=True)
+    try:
+        rc = proc.wait(timeout=HISTORY["phase_timeout_s"])
+    except subprocess.TimeoutExpired:
+        raise SmokeFailure(f"history phase timed out after "
+                           f"{HISTORY['phase_timeout_s']:.0f} s")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    if rc != 0:
+        raise SmokeFailure(f"history phase exited {rc}")
+    say("history", f"history phase took {time.perf_counter() - t0:.1f} s "
+        "(a child process)")
+
+
+def history_main(card: str) -> int:
+    """Bench history, the read-storm knob, recording replay and
+    continue_with_traces on the card (slice 13); raises on a failure."""
+    import os
+    import tempfile
+    import numpy as np
+    t0 = time.perf_counter()
+    H = HISTORY
+    with tempfile.TemporaryDirectory() as tmp:
+        rec = os.path.join(tmp, "rec")
+        os.makedirs(rec)
+        kids = [_history_child(tmp, "record", rec=rec),
+                _history_child(tmp, "continue_cpu")]
+        try:
+            _bench_history(tmp, card)
+            _read_storm(card)
+            _wait_kids(kids[:1], H["child_timeout_s"])
+            t_rec = time.perf_counter() - t0
+            kids.append(_history_child(tmp, "replay_cpu", rec=rec,
+                                       out=os.path.join(tmp, "cpu_replay")))
+            doc = _replay_on_card(tmp, rec, card)
+            t1 = time.perf_counter()
+            one, two, c1, c2 = continue_run("cuda")
+            t_cwt = time.perf_counter() - t1
+            _wait_kids(kids[1:], H["child_timeout_s"])
+        finally:
+            for proc, _, _ in kids:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        with open(os.path.join(tmp, "cpu_replay", "replay.json")) as f:
+            if json.load(f) != doc:
+                raise SmokeFailure("replay: the card's replay document "
+                                   "differs from --cpu's")
+        with np.load(kids[1][1]) as z:
+            if list(z["cycles"]) != [c1, c2]:
+                raise SmokeFailure("continue_with_traces: cycles differ "
+                                   "from the CPU's")
+            for tag, leaves in (("p1", one), ("p2", two)):
+                for k, v in leaves.items():
+                    if not np.array_equal(v, z[f"{tag}__{k}"]):
+                        raise SmokeFailure(f"continue_with_traces: {tag} "
+                                           f"leaf {k} differs from --cpu")
+        say("history", f"replay --cpu (a child process): the replay "
+            "document equal to the card's; continue_with_traces, async "
+            f"{H['cwt_nodes']} x {H['cwt_trace_len']} (uniform seed 0, "
+            f"then seed 1), {c1} + {c2} cycles, {t_cwt:.1f} s on the card: "
+            f"every leaf after each phase equal to --cpu's (a child "
+            f"process); the recording (a child process, beside the bench "
+            f"runs) was done at {t_rec:.1f} s ({card})")
+    say("history", f"history work took {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def phase_multi_card() -> None:
     import torch
     from ue22cs343bb1_openmp_assignment_tpu_torch.parallel import ring_kernel
@@ -3799,6 +4165,7 @@ def main(argv=None) -> int:
         timed("cli", phase_cli, card)
         timed("obs", phase_obs, card)
         timed("serve", phase_serve, card)
+        timed("history", phase_history, card)
         say("time", ", ".join(f"{k} {v:.1f} s" for k, v in times.items()))
     except (SmokeFailure, AssertionError, RuntimeError, ValueError) as e:
         print(f"FAIL: {type(e).__name__}: {e}", flush=True)

@@ -60,7 +60,8 @@ def test_scans_cover_the_copied_modules():
                  "obs.clock", "obs.events", "obs.burnrate",
                  "obs.recording", "obs.promexpo", "obs.fleet",
                  "daemon.protocol", "daemon.bucketing", "daemon.server",
-                 "daemon.client"):
+                 "daemon.client", "obs.history", "obs.regress",
+                 "obs.bench_diff", "replay"):
         assert f"{PKG}.{copy}" in mods, copy
 
 

@@ -12,6 +12,7 @@ import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 from ue22cs343bb1_openmp_assignment_tpu.config import (
     SystemConfig as JaxConfig)
@@ -19,6 +20,13 @@ from ue22cs343bb1_openmp_assignment_tpu.ops import sync_engine as jse
 from ue22cs343bb1_openmp_assignment_tpu_torch import convert
 from ue22cs343bb1_openmp_assignment_tpu_torch.config import (
     SystemConfig as TorchConfig)
+
+# One torch thread a test process. pytest-xdist runs several workers on
+# the host's cores, and torch's default of one intra-op thread a core in
+# each of them oversubscribes the host; the engines' integer ops on these
+# small machines gain nothing from more threads, and their results do not
+# depend on the count.
+torch.set_num_threads(1)
 
 #: bench.py's deep-engine defaults (bench.py:557-584): drain_depth 13,
 #: txn_width 3 (W = 16), deep_slots 3, G 1, slack 4, one wave, exact

@@ -5,9 +5,11 @@
         [--reps R] [--workload NAME] [--local-frac F] [--replicas R]
         [--txn-width K] [--drain-depth H] [--fold-impl kernel|plain]
         [--fused-round auto|on|off] [--window-kernels auto|on|off]
-        [--profile ROUNDS] [--device cuda|cpu]
+        [--deep-slots S] [--deep-g G] [--deep-waves W] [--deep-slack K]
+        [--read-storm] [--no-exact-flags] [--[no-]procedural]
+        [--profile ROUNDS] [--device cuda|cpu] [--record PATH]
     python -m ue22cs343bb1_openmp_assignment_tpu_torch.bench --engine async
-        [--workload NAME] [--queue-capacity Q] [--shards D]
+        [--workload NAME] [--queue-capacity Q] [--admission A] [--shards D]
         [--transport rdma|all_to_all] [--profile CYCLES]
         [--ledger | --coherence-profile]
     python -m ue22cs343bb1_openmp_assignment_tpu_torch.bench --serve
@@ -24,8 +26,9 @@ The machine is built before the clock starts.
 
 As in the JAX bench, the sync-like engines generate the ``uniform``
 workload procedurally inside the round (``cfg.procedural``, O(1) trace
-storage) when it is the workload and ``--replicas`` is 1; any other
-workload, or an ensemble, runs as stored traces drawn from the threefry
+storage) when it is the workload and ``--replicas`` is 1 (unless
+``--no-procedural``); any other workload, an ensemble or
+``--no-procedural`` runs as stored traces drawn from the threefry
 twin of jax.random (``models.workloads``), whose stored-trace rounds are
 the plain PyTorch rounds on the card, as in JAX. ``--replicas R``
 (``--engine sync`` only) batches R machines into one ensemble, replica r
@@ -34,12 +37,17 @@ the workload of seed r under arbitration seed r
 throughput is summed over the replicas.
 
 ``--engine deep`` (the default) is the deep-window engine (drain_depth
-13, txn_width 3, deep_slots 3, one owner-value slot, slack 4, one wave,
-exact flags). ``--fused-round`` selects its round: the whole round as
-one kernel (``ops/deep_round_kernel``) or the fold path (three fold
-kernels around the plain round middle); ``auto``, the default, takes the
-fused round on a card where ``supported(cfg)`` holds, as the JAX
-``bench.py`` does on a TPU.
+13, txn_width 3, deep_slots 3, 2 from 32768 nodes up, one owner-value
+slot, slack 4, one wave, exact flags). The knobs of the JAX bench
+(``bench.py:356-384``, applied as at ``:565-584``) change them:
+``--deep-slots``, ``--deep-g`` (owner-value slots), ``--deep-waves``,
+``--deep-slack``, ``--read-storm`` and ``--no-exact-flags``.
+``--fused-round`` selects its round: the whole round as one kernel
+(``ops/deep_round_kernel``) or the fold path (three fold kernels around
+the plain round middle); ``auto``, the default, takes the fused round on
+a card where ``supported(cfg)`` holds, as the JAX ``bench.py`` does on a
+TPU. The fused round does not take the read storm: ``--read-storm``
+runs the fold path.
 
 ``--engine sync`` is the sync window engine: txn_width 3 and drain_depth
 4 by default, drain_depth 16 at ``--txn-width 1``. ``--window-kernels``
@@ -90,8 +98,19 @@ arrivals (``soak.soak_stream`` at ``--arrival-rate`` for
 latency in ms; the warm pass runs on a VirtualClock. ``--daemon`` sends
 the stream through an in-process daemon on a unix socket under a
 temporary directory (``soak.soak_daemon``: client-observed latency,
-continuous admission, shape buckets). ``--record`` (bench history) is
-not ported yet (ROADMAP.md, Queue 1 item 4).
+continuous admission, shape buckets). ``--admission A`` caps each
+async node's outstanding requests (``cfg.admission_window``), as in JAX.
+
+``--record PATH`` appends the run to a bench history (``obs/history.py``,
+``cache-sim/bench/v1.4``, JAX ``bench.py:111-131``, ``:265-312``,
+``:570-632``) on every mode: the metric string, the rep times, rounds
+or cycles, retired instructions and quiescence, the config fingerprint
+with the JAX bench's keys (``platform`` ``gpu`` on the card, ``cpu`` on
+the CPU), ``device_kind`` (the card's name, or ``cpu``), the serve block
+of ``--serve`` and ``--soak`` and the latency block of ``--soak``. The
+XLA-only ``hlo_fingerprint`` and ``cost`` stay ``null``. Compare
+entries with ``cache-sim-torch bench-diff --history PATH
+--against-last``.
 
 The JSON line carries instrs/sec, rounds (cycles for the async engine),
 ms/round (ms/cycle), the card's name and power limit, the workload and
@@ -145,25 +164,37 @@ KERNEL_NAMES = {"fold": "deep_fold_kernel", "round": "deep_round_kernel",
                 "threefry": "threefry_kernel"}
 
 
-def deep_config(nodes: int) -> SystemConfig:
-    """bench.py's deep-engine config at ``nodes`` (deep_slots 2 from
-    32768 nodes up, as there)."""
-    cfg = SystemConfig.scale(num_nodes=nodes, drain_depth=13, txn_width=3)
+def deep_config(nodes: int, deep_slots=None, deep_g=None,
+                deep_waves: int = 1, deep_slack: int = 4,
+                read_storm: bool = False, exact_flags: bool = True,
+                admission=None) -> SystemConfig:
+    """bench.py's deep-engine config at ``nodes`` with its knobs
+    (``bench.py:565-584``): deep_slots 3, or 2 from 32768 nodes up, one
+    owner-value slot, slack 4, one wave, no read storm, exact flags."""
+    if deep_slots is None:
+        deep_slots = 2 if nodes >= 32768 else 3
+    if deep_g is None:
+        deep_g = 1
+    cfg = SystemConfig.scale(num_nodes=nodes, drain_depth=13, txn_width=3,
+                             admission_window=admission)
     return dataclasses.replace(
-        cfg, deep_window=True, deep_slots=2 if nodes >= 32768 else 3,
-        deep_ownerval_slots=1, deep_horizon_slack=4, procedural="uniform",
+        cfg, deep_window=True, deep_slots=deep_slots,
+        deep_ownerval_slots=deep_g, deep_horizon_slack=deep_slack,
+        deep_waves=deep_waves, deep_read_storm=read_storm,
+        deep_exact_flags=exact_flags, procedural="uniform",
         max_instrs=1, proc_local_permille=800)
 
 
 def sync_config(nodes: int, txn_width: int = 3, drain_depth=None,
-                window_kernels: bool = False) -> SystemConfig:
+                window_kernels: bool = False, admission=None) -> SystemConfig:
     """bench.py's sync-engine config at ``nodes``: txn_width 3 and
     drain_depth 4, or drain_depth 16 at txn_width 1, procedural uniform
     at locality 0.8; ``window_kernels`` sets ``pallas_burst``."""
     if drain_depth is None:
         drain_depth = 16 if txn_width == 1 else 4
     cfg = SystemConfig.scale(num_nodes=nodes, drain_depth=drain_depth,
-                             txn_width=txn_width)
+                             txn_width=txn_width,
+                             admission_window=admission)
     return dataclasses.replace(
         cfg, procedural="uniform", max_instrs=1, proc_local_permille=800,
         pallas_burst=window_kernels)
@@ -233,13 +264,15 @@ def device_events(fn) -> tuple:
              if e.device_type == DeviceType.CUDA], wall)
 
 
-def async_config(nodes: int, trace_len: int,
-                 queue_capacity: int = 64) -> SystemConfig:
+def async_config(nodes: int, trace_len: int, queue_capacity: int = 64,
+                 admission=None) -> SystemConfig:
     """bench.py's async-engine config at ``nodes``: scatter INV, the
     queue capacity, locality 0.8 (of the ``procedural_uniform``
-    workload), ``trace_len`` instructions a node."""
+    workload), ``trace_len`` instructions a node, the admission window
+    (None: the reference's drop semantics)."""
     return SystemConfig.scale(num_nodes=nodes, queue_capacity=queue_capacity,
-                              max_instrs=trace_len, proc_local_permille=800)
+                              max_instrs=trace_len, proc_local_permille=800,
+                              admission_window=admission)
 
 
 def gen_kwargs(workload: str, local_frac: float) -> dict:
@@ -288,7 +321,8 @@ def profile_steps(step_fn, st, rounds: int) -> dict:
                              n / rounds} for k, (us, n) in top]}
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
+    """The bench's flags."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--engine", choices=["deep", "sync", "async"],
                     default="deep")
@@ -308,6 +342,38 @@ def main(argv=None) -> int:
     ap.add_argument("--drain-depth", type=int, default=None)
     ap.add_argument("--window-kernels", choices=["auto", "on", "off"],
                     default="auto")
+    ap.add_argument("--deep-slots", type=int, default=None,
+                    help="deep engine: remote-event slots per window "
+                         "(default 3; 2 at >= 32768 nodes)")
+    ap.add_argument("--deep-g", type=int, default=None,
+                    help="deep engine: owner-value slots per window "
+                         "(default 1)")
+    ap.add_argument("--deep-waves", type=int, default=1,
+                    help="deep engine: absorption waves (default 1)")
+    ap.add_argument("--deep-slack", type=int, default=4,
+                    help="deep engine: adaptive attempt-horizon slack "
+                         "(default 4)")
+    ap.add_argument("--read-storm", action="store_true",
+                    help="deep engine: bulk-grant all same-round losing "
+                         "READ requests per entry (the fold path: the "
+                         "fused round does not take it)")
+    ap.add_argument("--no-exact-flags", action="store_true",
+                    help="deep engine: attempt-based marker/poison flags "
+                         "instead of the commit-prefix-exact flag pass")
+    ap.add_argument("--procedural", default=True,
+                    action=argparse.BooleanOptionalAction,
+                    help="sync engines: compute the uniform workload "
+                         "inside the round (the default); "
+                         "--no-procedural measures stored traces")
+    ap.add_argument("--admission", type=int, default=None,
+                    help="max concurrent outstanding requests a node "
+                         "(cfg.admission_window; None = the reference's "
+                         "drop semantics)")
+    ap.add_argument("--record", metavar="PATH",
+                    help="append this run to a bench-history JSONL "
+                         "(cache-sim/bench/v1.4); compare entries with "
+                         "`cache-sim-torch bench-diff --history PATH "
+                         "--against-last`")
     ap.add_argument("--profile", type=int, default=0, metavar="ROUNDS")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--queue-capacity", type=int, default=64)
@@ -354,7 +420,11 @@ def main(argv=None) -> int:
                     help="--serve: no warm pass, every pass timed (the "
                          "jobs' traces already drawn in this process by "
                          "an earlier --serve of the same mix and shape)")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
     dev = torch.device(args.device)
     if args.serve and args.soak:
         print("error: --serve and --soak are exclusive (closed-loop "
@@ -394,27 +464,12 @@ def main(argv=None) -> int:
         print("error: --shards routes the async engine's delivery; use "
               "--engine async", file=sys.stderr)
         return 2
-    if args.engine == "sync":
-        on = args.window_kernels == "on" or (
-            args.window_kernels == "auto" and dev.type == "cuda")
-        cfg = sync_config(args.nodes, args.txn_width, args.drain_depth, on)
-    else:
-        if (args.txn_width, args.drain_depth) != (3, None):
-            print("error: --txn-width and --drain-depth size the sync "
-                  "engine's window; use --engine sync", file=sys.stderr)
-            return 2
-        cfg = with_fused_round(deep_config(args.nodes), args.fused_round,
-                               dev)
-    procedural = args.workload == "uniform" and args.replicas == 1
-    if procedural:
-        cfg = dataclasses.replace(
-            cfg, proc_local_permille=int(args.local_frac * 1000))
-    else:
-        print("note: the procedural stream needs the uniform workload and "
-              "--replicas 1; measuring stored traces instead",
-              file=sys.stderr)
-        cfg = dataclasses.replace(cfg, procedural=None,
-                                  max_instrs=args.trace_len)
+    if args.engine == "deep" and (args.txn_width,
+                                  args.drain_depth) != (3, None):
+        print("error: --txn-width and --drain-depth size the sync "
+              "engine's window; use --engine sync", file=sys.stderr)
+        return 2
+    cfg, procedural = engine_config(args, dev)
     ensemble = args.replicas > 1
 
     def fresh():
@@ -465,6 +520,13 @@ def main(argv=None) -> int:
            "window_kernels": cfg.pallas_burst, "launches": launches,
            "config": {"nodes": args.nodes, "trace_len": args.trace_len,
                       "chunk": args.chunk, "deep_slots": cfg.deep_slots,
+                      "deep_g": cfg.deep_ownerval_slots,
+                      "deep_waves": cfg.deep_waves,
+                      "deep_slack": cfg.deep_horizon_slack,
+                      "read_storm": cfg.deep_read_storm,
+                      "exact_flags": cfg.deep_exact_flags,
+                      "admission": cfg.admission_window,
+                      "procedural": procedural,
                       "txn_width": cfg.txn_width,
                       "drain_depth": cfg.drain_depth}}
     if args.profile:
@@ -480,7 +542,99 @@ def main(argv=None) -> int:
             doc["profile"] = profile_rounds(cfg, st, args.profile,
                                             args.fold_impl)
     print(json.dumps(doc))
+    if args.record:
+        rep = (f", {args.replicas} replicas" if ensemble else "")
+        rep += ", procedural" if procedural else ""
+        record(args, dev, f"{args.engine}@{args.nodes}", {
+            "metric": f"simulated RD/WR instrs/sec @{args.nodes} cores "
+                      f"({args.engine} engine, {args.workload}{rep}, 1 "
+                      f"chip, {platform(dev)})",
+            "value": doc["instrs_per_sec"], "unit": "instrs/sec",
+            "vs_baseline": doc["instrs_per_sec"] / 1e8},
+            doc, rounds, True, run_fingerprint(args, max_rounds, procedural))
     return 0
+
+
+def engine_config(args, dev: torch.device) -> tuple:
+    """(cfg, procedural) of the deep and sync engines from the bench's
+    flags, by the JAX bench's rules (``bench.py:565-584``): the deep
+    knobs, the admission window, the procedural stream for the uniform
+    workload at ``--replicas`` 1 unless ``--no-procedural``, and the
+    kernel routes the device takes."""
+    if args.engine == "sync":
+        on = args.window_kernels == "on" or (
+            args.window_kernels == "auto" and dev.type == "cuda")
+        cfg = sync_config(args.nodes, args.txn_width, args.drain_depth, on,
+                          admission=args.admission)
+    else:
+        cfg = with_fused_round(
+            deep_config(args.nodes, args.deep_slots, args.deep_g,
+                        args.deep_waves, args.deep_slack, args.read_storm,
+                        not args.no_exact_flags, args.admission),
+            args.fused_round, dev)
+    procedural = args.procedural
+    if procedural and (args.workload != "uniform" or args.replicas > 1):
+        print("note: the procedural stream needs the uniform workload and "
+              "--replicas 1; measuring stored traces instead",
+              file=sys.stderr)
+        procedural = False
+    if procedural:
+        cfg = dataclasses.replace(
+            cfg, proc_local_permille=int(args.local_frac * 1000))
+    else:
+        cfg = dataclasses.replace(cfg, procedural=None,
+                                  max_instrs=args.trace_len)
+    return cfg, procedural
+
+
+def platform(dev: torch.device) -> str:
+    """The JAX bench's platform word for ``dev``: ``gpu`` for a CUDA
+    card (as JAX names one), else ``cpu``."""
+    return "gpu" if dev.type == "cuda" else "cpu"
+
+
+def run_fingerprint(args, max_cycles: int, procedural: bool,
+                    transport=None) -> dict:
+    """The JAX bench's fingerprint of one machine's run
+    (``bench.py:605-619``) less ``platform`` and ``smoke``; routed
+    delivery over shards (``transport``) stands for its ``sharded``."""
+    routed = transport not in (None, "none")
+    return {"engine": args.engine, "workload": args.workload,
+            "nodes": args.nodes, "trace_len": args.trace_len,
+            "chunk": args.chunk, "reps": args.reps,
+            "max_cycles": max_cycles, "replicas": args.replicas,
+            "procedural": procedural, "sharded": routed, "devices": 1,
+            "transport": transport if routed else None,
+            "ledger": args.ledger,
+            "coherence_profile": args.coherence_profile}
+
+
+def record(args, dev: torch.device, label: str, result: dict, doc: dict,
+           steps: int, quiescent: bool, config: dict, serve=None,
+           latency=None) -> None:
+    """Append this run to the history at ``args.record``: one v1.4 entry
+    (``obs.history.entry``) whose result is ``result``, whose extra comes
+    from the bench's JSON line ``doc``, and whose fingerprint is
+    ``config`` (the JAX bench's keys, ``bench.py:115-121``, ``:272-280``,
+    ``:605-619``) with the platform and ``smoke`` added."""
+    import os
+
+    from ue22cs343bb1_openmp_assignment_tpu_torch.obs import history
+    extra = {"engine": config["engine"],
+             "rep_times_s": doc.get("reps_s") or [doc["wall_s"]],
+             "elapsed_s": doc["wall_s"], "steps": steps,
+             "retired": doc.get("instrs_retired"), "quiescent": quiescent}
+    entry = history.entry(
+        label=label, source="bench", result=result, extra=extra,
+        config=dict(config, platform=platform(dev), smoke=False),
+        sha=history.git_sha(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__)))),
+        captured_at=time.strftime("%Y-%m-%dT%H:%M:%S%z"),
+        device_kind=(torch.cuda.get_device_name(dev)
+                     if dev.type == "cuda" else "cpu"),
+        serve=serve, latency=latency)
+    history.append(args.record, entry)
+    print(f"recorded to {args.record}", file=sys.stderr)
 
 
 def async_main(args, dev: torch.device) -> int:
@@ -495,7 +649,8 @@ def async_main(args, dev: torch.device) -> int:
               f"{args.nodes}", file=sys.stderr)
         return 2
     cfg = dataclasses.replace(
-        async_config(args.nodes, args.trace_len, args.queue_capacity),
+        async_config(args.nodes, args.trace_len, args.queue_capacity,
+                     args.admission),
         transport=args.transport,
         proc_local_permille=int(args.local_frac * 1000))
     deliver_fn = sharded_step.transport_deliver(
@@ -560,6 +715,7 @@ def async_main(args, dev: torch.device) -> int:
            "config": {"nodes": args.nodes, "trace_len": args.trace_len,
                       "chunk": args.chunk,
                       "queue_capacity": cfg.queue_capacity,
+                      "admission": cfg.admission_window,
                       "inv_mode": cfg.inv_mode,
                       "proc_local_permille": cfg.proc_local_permille,
                       "local_frac": args.local_frac}}
@@ -576,6 +732,17 @@ def async_main(args, dev: torch.device) -> int:
             return out[0] if kw else out
         doc["profile"] = profile_steps(step_fn, st, args.profile)
     print(json.dumps(doc))
+    if args.record:
+        record(args, dev, f"async@{args.nodes}"
+               + ("+ledger" if args.ledger else "")
+               + ("+cohprof" if args.coherence_profile else ""), {
+                   "metric": f"simulated RD/WR instrs/sec @{args.nodes} "
+                             f"cores (async engine, {args.workload}, 1 "
+                             f"chip, {platform(dev)})",
+                   "value": doc["instrs_per_sec"], "unit": "instrs/sec",
+                   "vs_baseline": doc["instrs_per_sec"] / 1e8},
+               doc, cycles, True, run_fingerprint(args, max_cycles, False,
+                                                  transport))
     return 0
 
 
@@ -660,7 +827,24 @@ def serve_main(args, dev: torch.device) -> int:
             serve_mod.build_job_state(scfg, scfg, specs[0], dev),
             args.profile)
     print(json.dumps(out))
-    return 0 if doc["jobs_quiesced"] == doc["jobs_total"] else 1
+    quiet = doc["jobs_quiesced"] == doc["jobs_total"]
+    if args.record:
+        serve = {"slots": args.serve_slots, "jobs": n_jobs,
+                 "waves": doc["wave_count"], "devices": 1,
+                 "mb_dropped": doc["mb_dropped"],
+                 "padding_waste": round(doc["padding_waste"], 4)}
+        record(args, dev, f"serve@{args.serve_slots}", {
+            "metric": f"serve jobs/sec @{args.nodes}x{args.trace_len} "
+                      f"x{n_jobs} jobs (async engine, mixed traffic, "
+                      f"{platform(dev)})",
+            "value": out["jobs_per_sec"], "unit": "jobs/sec",
+            "vs_baseline": 0.0}, out, doc["wave_count"], quiet,
+            {"engine": "async", "mode": "serve", "workload": "mixed",
+             "nodes": args.nodes, "trace_len": args.trace_len,
+             "chunk": args.chunk, "reps": args.reps,
+             "max_cycles": max_cycles, "slots": args.serve_slots,
+             "jobs": n_jobs, "devices": 1}, serve=serve)
+    return 0 if quiet else 1
 
 
 def soak_main(args, dev: torch.device) -> int:
@@ -757,7 +941,38 @@ def soak_main(args, dev: torch.device) -> int:
     if args.daemon:
         out["bucket_growths"] = doc["daemon_stats"]["bucket_growths"]
     print(json.dumps(out))
-    return 0 if doc["jobs_quiesced"] == doc["jobs_total"] else 1
+    quiet = doc["jobs_quiesced"] == doc["jobs_total"]
+    if args.record:
+        transport = "daemon" if args.daemon else "inproc"
+        latency = {
+            "p50_ms": lat["p50_ms"], "p95_ms": lat["p95_ms"],
+            "p99_ms": lat["p99_ms"], "max_ms": lat["max_ms"],
+            "jobs": lat["jobs"], "arrival_rate": float(args.arrival_rate),
+            "queue_depth_peak": doc["series_summary"]["queue_depth_peak"],
+            "samples_ms": (doc.get("samples_ms")
+                           or [round(s["e2e_s"] * 1e3, 6)
+                               for s in doc["trace"]["spans"]]),
+            "duration_s": float(args.soak_duration),
+            "saturated": doc["verdict"]["saturated"],
+            "drain_rate_jobs_per_s": doc["drain_rate_jobs_per_s"]}
+        serve = {"slots": args.serve_slots, "jobs": doc["jobs_total"],
+                 "waves": doc["wave_count"], "devices": 1,
+                 "mb_dropped": doc["mb_dropped"],
+                 "padding_waste": round(doc["padding_waste"], 4),
+                 "transport": transport}
+        record(args, dev, f"soak@{args.arrival_rate:g}/s", {
+            "metric": f"soak p95 job latency @{args.nodes}x"
+                      f"{args.trace_len} (async engine, mixed traffic, "
+                      f"open loop, {platform(dev)})",
+            "value": round(lat["p95_ms"], 3), "unit": "ms p95",
+            "vs_baseline": 0.0}, out, doc["wave_count"], quiet,
+            {"engine": "async", "mode": "soak", "workload": "mixed",
+             "nodes": args.nodes, "trace_len": args.trace_len,
+             "chunk": args.chunk, "max_cycles": max_cycles,
+             "slots": args.serve_slots, "arrival_rate": args.arrival_rate,
+             "duration_s": args.soak_duration, "transport": transport},
+            serve=serve, latency=latency)
+    return 0 if quiet else 1
 
 
 if __name__ == "__main__":

@@ -47,11 +47,17 @@ server), its clients ``submit`` and ``watch`` (``daemon/client.py``) and
 Like the engines, ``serve``, ``soak`` and ``daemon`` run on the card
 unless given ``--cpu``.
 
+``bench-diff`` (``obs/bench_diff.py``) compares two bench captures or
+the last two entries of a bench history (``bench --record``) with the
+statistics of ``obs/regress.py``; ``replay`` (``replay.py``) re-drives a
+serving recording or a soak incident's recording slice, on the card
+unless given ``--cpu``, and checks every job's dump digest.
+
 Not ported yet (ROADMAP.md, Queue 1): the verbs that dispatch to the
 analysis and the other observability modules (``analyze``,
-``bench-diff``, ``perf-report``, ``dashboard``) and ``replay``; each
-exits 2 with a note. Nor ``--engine omp``, which builds the reference's
-own ``assignment.c``, not part of this repository.
+``perf-report``, ``dashboard``); each exits 2 with a note. Nor
+``--engine omp``, which builds the reference's own ``assignment.c``, not
+part of this repository.
 """
 
 from __future__ import annotations
@@ -65,15 +71,18 @@ import sys
 import numpy as np
 
 #: the JAX CLI's verbs, which dispatch to modules the port does not have
-#: yet (ROADMAP.md, Queue 1 items 4-7)
-LATER_VERBS = ("analyze", "bench-diff", "perf-report", "dashboard",
-               "replay")
+#: yet (ROADMAP.md, Queue 1 items 4 and 7)
+LATER_VERBS = ("analyze", "perf-report", "dashboard")
 
-#: the serving verbs (JAX ``cli.py:634-655``): verb -> (module, function)
+#: the serving verbs (JAX ``cli.py:634-655``) and the host verbs
+#: ``bench-diff`` and ``replay`` (``:616-618``, ``:656-659``):
+#: verb -> (module, function)
 SERVING_VERBS = {
     "serve": ("serve", "main"), "soak": ("soak", "main"),
     "daemon": ("daemon.server", "main"), "submit": ("daemon.client", "main"),
-    "watch": ("daemon.client", "main_watch"), "top": ("obs.fleet", "main")}
+    "watch": ("daemon.client", "main_watch"), "top": ("obs.fleet", "main"),
+    "bench-diff": ("obs.bench_diff", "main_bench_diff"),
+    "replay": ("replay", "main")}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -213,6 +222,22 @@ def build_parser() -> argparse.ArgumentParser:
                         "per directory entry per round (max 14; default "
                         "1; on --resume an omitted flag keeps the "
                         "checkpoint's value)")
+    p.add_argument("--deep-g", type=int, default=None,
+                   help="deep windows: owner-value slots per window "
+                        "(default 4, the config's; on --resume an "
+                        "omitted flag keeps the checkpoint's value)")
+    p.add_argument("--deep-slack", type=int, default=None,
+                   help="deep windows: adaptive attempt-horizon slack "
+                        "(default 2, the config's; on --resume an "
+                        "omitted flag keeps the checkpoint's value)")
+    p.add_argument("--read-storm", action="store_true",
+                   help="deep windows: bulk-grant all same-round losing "
+                        "READ requests per entry (the many-readers "
+                        "lever; the fused round does not take it)")
+    p.add_argument("--no-exact-flags", action="store_true",
+                   help="deep windows: attempt-based marker/poison "
+                        "flags instead of the commit-prefix-exact flag "
+                        "pass (cfg.deep_exact_flags off)")
     p.add_argument("--sweep-seeds", type=int, metavar="K",
                    help="sync engine: run K arbitration seeds as one "
                         "ensemble and report which seeds reproduce an "
@@ -276,7 +301,24 @@ def _sync_dims(args) -> dict:
                                 else args.deep_waves),
                     txn_width=dims.get("txn_width", 3))
         dims.setdefault("drain_depth", 13)
+        dims.update(_deep_knobs(args))
     return dims
+
+
+def _deep_knobs(args) -> dict:
+    """The config fields of the deep flags that default to the config's
+    own values (``--deep-g``, ``--deep-slack``, ``--read-storm``,
+    ``--no-exact-flags``): only those the command line sets."""
+    over = {}
+    if args.deep_g is not None:
+        over["deep_ownerval_slots"] = args.deep_g
+    if args.deep_slack is not None:
+        over["deep_horizon_slack"] = args.deep_slack
+    if args.read_storm:
+        over["deep_read_storm"] = True
+    if args.no_exact_flags:
+        over["deep_exact_flags"] = False
+    return over
 
 
 def procedural_config(args):
@@ -337,7 +379,7 @@ def _main_sync(args, dev) -> int:
             return 2
         if (args.drain_depth is not None or args.txn_width is not None
                 or args.deep_window or args.deep_slots is not None
-                or args.deep_waves is not None):
+                or args.deep_waves is not None or _deep_knobs(args)):
             # pure compute knobs (window shape; no state shapes depend
             # on them): overridable on resume; an omitted --deep-slots
             # keeps the checkpoint's slot count
@@ -352,6 +394,7 @@ def _main_sync(args, dev) -> int:
                 over["deep_waves"] = args.deep_waves
             if args.deep_slots is not None:
                 over["deep_slots"] = args.deep_slots
+            over.update(_deep_knobs(args))
             old_cfg = cfg
             cfg = dataclasses.replace(cfg, **over)
 
@@ -615,9 +658,9 @@ def _main_async(args, dev) -> int:
         overrides = {k: torch.as_tensor(v, device=dev)
                      for k, v in _schedule_knobs(args, cfg.num_nodes).items()}
         if args.fault_seed is not None:
-            from ue22cs343bb1_openmp_assignment_tpu_torch.utils.random import (
-                prng_key)
-            overrides["fault_key"] = prng_key(args.fault_seed, dev)
+            from ue22cs343bb1_openmp_assignment_tpu_torch.state import (
+                fault_key_from_seed)
+            overrides["fault_key"] = fault_key_from_seed(args.fault_seed, dev)
         if overrides:
             system = dataclasses.replace(
                 system, state=system.state.replace(**overrides))
@@ -792,6 +835,12 @@ def main(argv=None) -> int:
     if args.deep_window and args.engine != "sync":
         print("error: --deep-window is a transactional-engine round "
               "mode; add --engine sync", file=sys.stderr)
+        return 2
+    if _deep_knobs(args) and not (args.deep_window or (
+            args.resume and args.engine == "sync")):
+        print("error: --deep-g, --deep-slack, --read-storm and "
+              "--no-exact-flags are deep-window knobs; add --engine sync "
+              "--deep-window", file=sys.stderr)
         return 2
     if args.engine == "sync":
         return _main_sync(args, dev)

@@ -242,6 +242,39 @@ def init_state(cfg: SystemConfig, traces=None, issue_delay=None,
     )
 
 
+def continue_with_traces(cfg: SystemConfig, state: SimState, traces=None,
+                         instr_arrays=None) -> SimState:
+    """Stream the next trace phase into a quiescent machine (JAX
+    ``state.continue_with_traces``): run to quiescence, swap in the next
+    ``max_instrs``-sized chunk, continue. Caches, memories, directories,
+    mailboxes and metrics persist; only the instruction stream resets.
+    The new arrays go to the state's device. A host-side phase boundary:
+    it reads the quiescence flag.
+
+    Raises ValueError if the machine is not quiescent (in-flight
+    messages or blocked nodes would interleave with the new phase).
+    """
+    if not bool(state.quiescent()):
+        raise ValueError(
+            "continue_with_traces needs a quiescent machine: messages "
+            "in flight or nodes blocked (run to quiescence first)")
+    dev = state.instr_op.device
+    op, addr, val, count = build_instr_arrays(
+        cfg, dev, traces=traces, instr_arrays=instr_arrays)
+    return state.replace(
+        instr_op=op, instr_addr=addr, instr_val=val, instr_count=count,
+        instr_idx=torch.full((cfg.num_nodes,), -1, dtype=torch.int32,
+                             device=dev))
+
+
+def fault_key_from_seed(seed: int, device=None) -> torch.Tensor:
+    """The fault-injection key of ``seed`` (JAX ``state.fault_key_from_seed``:
+    ``jax.random.key_data(PRNGKey(seed))`` as uint32), as the [2] int32
+    bit patterns every uint32 leaf of the port holds, on ``device``
+    (None: the card)."""
+    return prng_key(seed, device)
+
+
 # -- batching: a leading job axis over the whole machine -------------------
 #
 # JAX state.py:303-360. Every SimState leaf keys its minor axes off the
