@@ -125,7 +125,7 @@ Phases (each prints its own line; any failure exits non-zero):
 10. the port's CLI (``cli.main`` in this process, no ``--cpu``): the
    bench's cells at full width (sync@4096 x 4096 at txn_width 3 /
    drain_depth 4 and txn_width 1 / drain_depth 16, deep@4096 x 4096 at
-   deep_slots 3, async@4096 x 256 ``uniform`` at queue capacity 64),
+   deep_slots 3, async@4096 x 128 ``uniform`` at queue capacity 64),
    each with --check --metrics: the check's exit and line equal to the
    library's check of the same config run through the library in this
    process (where the async engine's engine tier trips on the racy
@@ -133,14 +133,14 @@ Phases (each prints its own line; any failure exits non-zero):
    --check), every document valid, equal to the library run's, every
    instruction retired, sync_multi_round / sync_round / round launched
    once a round and threefry on the async run; the same runs at 256
-   nodes x 128 with --dump on the card and with --cpu, dumps, stdout and
+   nodes x 64 with --dump on the card and with --cpu, dumps, stdout and
    stderr equal, and a deep run with --trace-log there (logs equal, the
    fold modes launched on the card); tests/fixtures/mini on the async,
    sync and native engines, card against --cpu; each run's wall seconds
    beside the card's name and power limit;
 11. the observability captures and verbs (``obs``, slice 11; sizes in
    OBS), through ``cli.main``: ``stats --timeseries --phases`` of
-   async@4096 x 512 ``uniform`` over its first 512 cycles (telemetry
+   async@4096 x 512 ``uniform`` over its first 256 cycles (telemetry
    totals equal to the run's metrics, the plain and telemetry runs'
    walls) and ``profile`` over the same cycles (reads and writes equal
    to the run's, peak device memory); ``profile --engine sync`` at 4096
@@ -151,7 +151,7 @@ Phases (each prints its own line; any failure exits non-zero):
    the rounds' conflicts and retired counts); every verb (stats on
    three engines, trace, txns, critical-path, profile on three engines)
    and ``--check --flight-dir`` (the ``invariant:check`` incident of the
-   tripped engine tier) at 256 nodes x 128, the card against --cpu:
+   tripped engine tier) at 256 nodes x 64, the card against --cpu:
    exit codes, stdout (``extra.phases`` by its names and counts),
    stderr and files equal. The --cpu runs and the two 4096 profiles
    run in child processes beside the card runs of this process; the
@@ -164,7 +164,7 @@ Phases (each prints its own line; any failure exits non-zero):
    same run with --cpu (a child process), byte for byte; a mid-wave
    ``set_state`` swap leaves the neighbours' leaves equal to an
    unswapped batch's; the serving run through the port's bench (``bench
-   --serve``: the JAX mix and queue rule, 512 jobs through 256 slots,
+   --serve``: the JAX mix and queue rule, 256 jobs through 256 slots,
    one warm pass and one timed pass, a torch.profiler window of wave
    cycles beside solo cycles): jobs/sec, waves, padding_waste, ms and
    device launches a wave cycle, threefry launches (the warm pass draws
@@ -192,6 +192,23 @@ Phases (each prints its own line; any failure exits non-zero):
    --latency`` of the recorded against the replayed entry exit 0 or 4;
    ``state.continue_with_traces`` on the async engine at 256 x 64, two
    phases, every leaf equal to the CPU's (a child process).
+14. report (slice 14; sizes in REPORT), in a child interpreter:
+   ``perf-report --engine deep`` at 4096 x 4096 on the card twice (the
+   fold kernels; byte-identical documents, the per-step dispatch record
+   launching one of each fold mode), at 256 x 256 on the card and with
+   ``--cpu`` (a child process; steps, retired and config equal, each
+   side's per-step ops and bytes printed), then ``--pallas --timing`` at
+   4096 (one deep_round launch a step, the io-contract row equal to the
+   wrapper's contract, measured/model); ``perf-report --engine async``
+   at 4096 x 512 ``--shards 4`` (the transport row; a child process on
+   the card beside the deep reports, all host-bound); each per-step
+   record's aten ops beside the device launches a torch.profiler window
+   of the same route counts; ``bench`` at deep@4096 with
+   ``--kernel-costs --timer-check --profile-dir --record`` twice (a
+   trustworthy barrier, a trace naming deep_round_kernel, equal cost
+   vectors, ``bench-diff --bytes`` exit 0); ``dashboard`` over that
+   history and the archives (the card's point in the roofline scatter;
+   the archives alone render tests/golden/dashboard.* byte for byte).
 
 Each phase's seconds are printed after the last phase.
 ``python3 chip_smoke.py --serve-run 1024`` runs only the serving run,
@@ -1125,9 +1142,9 @@ PROFILE_ROUNDS = {"fused round": 128, "other": 16}
 #: the depth of the two sync routes held to the fused round: the eager
 #: round around the TPU kernels' counterparts and the plain rounds run
 #: this many rounds (cut from quiescence, 1600 rounds at txn_width 3 and
-#: 3776 at txn_width 1, for the serve phase's time) and end equal to the
-#: fused round after as many rounds
-SYNC_ROUTE_ROUNDS = 200
+#: 3776 at txn_width 1, for the serve phase's time, and from 200 for the
+#: report phase's) and end equal to the fused round after as many rounds
+SYNC_ROUTE_ROUNDS = 100
 #: the plain rounds' final state at quiescence of each txn_width's run
 #: (sync@4096 x 4096, chunk 64), as printed by ``scripts/sync_reference.py``
 #: (defaults) on an H100: rounds, retired instructions and
@@ -1598,9 +1615,10 @@ def phase_ensembles(rows: dict) -> None:
 
 #: the async main path: the bench's 4096 nodes, its trace cut to 512
 #: instructions a node for time (the bench runs 4096); the all_to_all
-#: route runs ``route_cycles`` cycles (cut from quiescence for time)
+#: route runs ``route_cycles`` cycles (cut from quiescence for time,
+#: and from 512 for the report phase's)
 ASYNC = dict(num_nodes=4096, trace_len=512, chunk=64, shards=4,
-             route_cycles=512)
+             route_cycles=256)
 #: the JAX package's final state of that run on the CPU, as printed by
 #: ``scripts/async_reference.py`` (defaults): its cycles, its nonzero
 #: invariant counts and ``convert.leaves_digest`` of its leaves
@@ -2204,11 +2222,12 @@ CLI_RUNS = {
     "async uniform": (["--workload", "uniform", "--queue-capacity", "64"],
                       "threefry"),
 }
-#: full width: 4096 nodes x 4096 instructions (async 256: cut from 512
-#: for the serve phase's time); card against CPU: 256 nodes x 128 (the
-#: CPU's plain deep round takes ~0.3 s)
-CLI = dict(nodes=4096, trace_len=4096, async_trace_len=256, small_nodes=256,
-           small_trace_len=128)
+#: full width: 4096 nodes x 4096 instructions (async 128: cut from 512
+#: to 256 for the serve phase's time, and to 128 for the report
+#: phase's); card against CPU: 256 nodes x 64 (cut from 128 for the
+#: report phase's time: the CPU's plain deep round takes ~0.3 s)
+CLI = dict(nodes=4096, trace_len=4096, async_trace_len=128, small_nodes=256,
+           small_trace_len=64)
 
 
 def cli_argv(name: str, nodes: int, trace_len: int, *extra) -> list:
@@ -2492,19 +2511,21 @@ def phase_cli(card: str) -> None:
 # -- the observability captures and verbs -----------------------------------
 
 #: the obs phase's sizes: the full-width async machine (4096 nodes x 512,
-#: the cli phase's cell) captured for its first ``cycles`` cycles; the
+#: the cli phase's cell) captured for its first ``cycles`` cycles (cut
+#: from 512 for the report phase's time); the
 #: sync profile at 4096 x 4096 for 64 rounds; the deep profile at its
 #: cap (2048 nodes: 512 MiB of counters) for 8 rounds; every verb at
-#: 256 nodes x 128 on the card and with --cpu (the async captures for
-#: their first ``small_cycles`` cycles, the flight run to its end)
-OBS = dict(nodes=4096, trace_len=512, cycles=512, sync_rounds=64,
+#: 256 nodes x 64 on the card and with --cpu (the async captures for
+#: their first ``small_cycles`` cycles, the flight run to its end; cut
+#: from 128 instructions and 192 cycles for the report phase's time)
+OBS = dict(nodes=4096, trace_len=512, cycles=256, sync_rounds=64,
            deep_nodes=2048, deep_trace_len=256, deep_rounds=8,
-           small_nodes=256, small_trace_len=128, small_cycles=192,
+           small_nodes=256, small_trace_len=64, small_cycles=96,
            cpu_children=3, cpu_threads=2)
 
 
 def obs_small_runs() -> list:
-    """(label, argv) of every verb at 256 nodes x 128, "{out}" the run's
+    """(label, argv) of every verb at 256 nodes x 64, "{out}" the run's
     own directory; the flight run is the async CLI with --check
     --flight-dir, whose engine tier trips on this racy traffic (exit 3)
     and dumps the invariant:check incident."""
@@ -2788,7 +2809,7 @@ def phase_obs(card: str) -> None:
     ``cli.main`` on the card: the full-width async telemetry and profile,
     the sync profile at 4096 and the deep profile at 2048, each held to
     its plain run's metrics; every verb and the flight incident at 256
-    nodes x 128 on the card against --cpu (the --cpu runs, the full-width
+    nodes x 64 on the card against --cpu (the --cpu runs, the full-width
     profiles and the sync profile in child processes, all started
     together)."""
     import os
@@ -3205,18 +3226,21 @@ SERVE_REFERENCE = {
 #: sizes of the serve phase: the wave-against-solo check (16 jobs of the
 #: mix through 8 slots; the solo runs split over ``solo_children``
 #: child processes), the serving run (the JAX ``--serve`` mix and queue
-#: rule, 256 slots; cut from 1024 jobs to ``run_jobs``, two full waves,
+#: rule, 256 slots; cut from 1024 jobs to ``run_jobs``, one full wave
+#: (512, two waves, until the report phase came),
 #: and from the median of 3 to ``reps`` timed passes, for the script's
 #: time: PERF.md section 4; ``chip_smoke.py --serve-run 1024`` runs the
 #: whole mix alone), the one-slot baseline (the first ``base_jobs``
-#: jobs, one of each workload of the mix, cut from 64; one timed pass
+#: jobs of the mix, cut from 64 to 4, one of each workload, and to 2 for
+#: the report phase's time; one timed pass
 #: and no warm pass, the serving run having drawn their traces) and the
 #: daemon soak (two job shapes, ``rate`` jobs/s each for ``window_s``
-#: seconds, cut from 10 for the script's time)
+#: seconds, cut from 10 to 5 for the script's time, to 3 for the report
+#: phase's)
 SERVE = dict(nodes=32, trace_len=32, chunk=32, check_jobs=16, check_slots=8,
-             solo_children=2, run_jobs=512, run_slots=256, reps=1,
-             profile=16, base_jobs=4, small=16, rate=50.0,
-             window_s=5.0, daemon_slots=256, daemon_chunk=16,
+             solo_children=2, run_jobs=256, run_slots=256, reps=1,
+             profile=16, base_jobs=2, small=16, rate=50.0,
+             window_s=3.0, daemon_slots=256, daemon_chunk=16,
              soak_timeout_s=300.0, child_timeout_s=400.0, cpu_threads=2)
 
 
@@ -3683,7 +3707,9 @@ def phase_serve(card: str) -> None:
 
 #: the history phase (slice 13): the bench history at deep@4096 (the
 #: bench's defaults, ``reps`` timed runs each, twice), the read storm
-#: (``storm_rounds`` library rounds of the kernel folds against the
+#: (the bench at ``storm_trace_len`` instructions a node, cut from 4096
+#: for the report phase's time; ``storm_rounds`` library rounds of the
+#: kernel folds against the
 #: plain folds, which cost 150-200 ms a launch), the recording
 #: (``rec_jobs`` arrivals of serve.mixed_jobs at rec_nodes x
 #: rec_trace_len, ``rec_gap_s`` apart, through ``rec_slots`` slots,
@@ -3692,7 +3718,8 @@ def phase_serve(card: str) -> None:
 #: ``cwt_chunk``); the --cpu runs in child processes with
 #: ``cpu_threads`` threads each; the phase itself runs in a child
 #: process of its own, stopped after ``phase_timeout_s``
-HISTORY = dict(reps=3, storm_rounds=16, rec_jobs=16, rec_nodes=32,
+HISTORY = dict(reps=3, storm_rounds=16, storm_trace_len=1024, rec_jobs=16,
+               rec_nodes=32,
                rec_trace_len=32, rec_slots=8, rec_chunk=16, rec_gap_s=0.005,
                cwt_nodes=256, cwt_trace_len=64, cwt_chunk=64,
                cpu_threads=1, child_timeout_s=400.0,
@@ -3826,11 +3853,12 @@ def _bench_history(tmp: str, card: str) -> None:
     path = os.path.join(tmp, "history.jsonl")
     lines = []
     for _ in range(2):
-        line, launches = _bench_line(["--reps", str(H["reps"]), "--record",
-                                      path])
-        _check_launches("history: bench deep@4096", launches,
+        # the line's launches are its timed run's: the call's also count
+        # the round launches of the record's dispatch records
+        line, _ = _bench_line(["--reps", str(H["reps"]), "--record", path])
+        _check_launches("history: bench deep@4096", line["launches"],
                         {"round": ">0"})
-        lines.append((line, launches))
+        lines.append((line, line["launches"]))
     entries = history.load(path)
     for e in entries:
         history.validate_entry(e)
@@ -3857,9 +3885,9 @@ def _bench_history(tmp: str, card: str) -> None:
         f"{lines[1][0]['ms_per_round']:.4f}; bench-diff --against-last: "
         f"{rep['verdict'].upper()} (exit {rc}), medians "
         f"{rep['a']['median_s']} s -> {rep['b']['median_s']} s "
-        f"({rep['delta_pct']:+.3f} %), p {rep['p']}; launches a run (the "
-        f"last of each call): round {lines[0][1]['round']}, "
-        f"{lines[1][1]['round']} ({card})")
+        f"({rep['delta_pct']:+.3f} %), p {rep['p']}; launches in a timed "
+        f"run: round {lines[0][1]['round']}, {lines[1][1]['round']} "
+        f"({card})")
 
 
 def _read_storm(card: str) -> None:
@@ -3868,7 +3896,8 @@ def _read_storm(card: str) -> None:
     from ue22cs343bb1_openmp_assignment_tpu_torch import bench, convert
     from ue22cs343bb1_openmp_assignment_tpu_torch.ops import sync_engine as se
     H = HISTORY
-    line, launches = _bench_line(["--read-storm", "--reps", "1"])
+    line, launches = _bench_line(["--read-storm", "--reps", "1",
+                                  "--trace-len", str(H["storm_trace_len"])])
     if line["fused_round"] or not line["config"]["read_storm"]:
         raise SmokeFailure("read storm: the bench did not take the fold "
                            "path with the storm on")
@@ -3891,7 +3920,8 @@ def _read_storm(card: str) -> None:
             raise SmokeFailure(f"read storm: leaf {k} after "
                                f"{H['storm_rounds']} rounds differs between "
                                "the kernel and the plain folds")
-    say("history", f"bench --read-storm --reps 1 at deep@4096 (fold path): "
+    say("history", f"bench --read-storm --reps 1 at deep@4096 x "
+        f"{H['storm_trace_len']} (fold path): "
         f"{line['instrs_per_sec']:.1f} instrs/sec, {line['rounds']} rounds, "
         f"{line['ms_per_round']:.4f} ms/round; fold launches a run: pre "
         f"{launches['pre']}, flags "
@@ -4032,6 +4062,337 @@ def history_main(card: str) -> int:
     return 0
 
 
+REPORT = dict(nodes=4096, trace_len=4096, small_nodes=256,
+              small_trace_len=256, small_chunk=8, async_trace_len=512,
+              shards=4, timing_reps=3, profile_rounds=32, warm_rounds=16,
+              bench_reps=1, bench_trace_len=1024, cpu_threads=2,
+              child_timeout_s=420.0,
+              phase_timeout_s=600.0)
+
+
+def report_argv(engine: str, nodes: int, trace_len: int, *extra) -> list:
+    return ["perf-report", "--engine", engine, "--nodes", str(nodes),
+            "--trace-len", str(trace_len), "--json", *extra]
+
+
+def _report_doc(label: str, res: dict, card: str) -> dict:
+    if res["rc"] != 0:
+        raise SmokeFailure(f"report {label}: exit {res['rc']}, stderr "
+                           f"{res['err'][-600:]} ({card})")
+    return json.loads(res["out"])
+
+
+def _per_step(doc: dict) -> dict:
+    return next(k for k in doc["kernels"] if k["per_step"])
+
+
+def _route_launches(engine: str, routed: bool) -> float:
+    """Device launches a round (a cycle) that a torch.profiler window of
+    REPORT["profile_rounds"] counts on the route perf-report attributes:
+    its config and workload, REPORT["warm_rounds"] steps in."""
+    import torch
+    from ue22cs343bb1_openmp_assignment_tpu_torch import bench, cli
+    from ue22cs343bb1_openmp_assignment_tpu_torch.models.system import (
+        CoherenceSystem)
+    from ue22cs343bb1_openmp_assignment_tpu_torch.obs import perf_report
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import step
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import sync_engine as se
+    R = REPORT
+    cfg = perf_report.report_config(engine, R["nodes"])
+    if routed:
+        cfg = cli.kernel_routes(cfg, torch.device("cuda"))
+    trace = R["trace_len"] if engine == "deep" else R["async_trace_len"]
+    sysm = CoherenceSystem.from_workload(cfg, "uniform", trace_len=trace,
+                                         seed=0, device="cuda")
+    if engine == "async":
+        st = step.run_cycles(cfg, sysm.state, R["warm_rounds"])
+        prof = bench.profile_steps(lambda s: step.cycle(cfg, s), st,
+                                   R["profile_rounds"])
+    else:
+        st = se.run_rounds(cfg, se.from_sim_state(cfg, sysm.state, seed=0),
+                           R["warm_rounds"])
+        prof = bench.profile_rounds(cfg, st, R["profile_rounds"], "kernel")
+    return prof["device_launches_per_round"]
+
+
+def _report_deep(tmp: str, card: str, cpu_kids: list,
+                 card_kids: list) -> dict:
+    """perf-report --engine deep at full width twice (the fold kernels),
+    at 256 nodes card against --cpu (``cpu_kids``), then --pallas
+    --timing (the fused round kernel), once the async report on the card
+    (``card_kids``, whose result this returns) is done."""
+    import os
+    from ue22cs343bb1_openmp_assignment_tpu_torch.obs import perf_report
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
+        deep_round_kernel as drk)
+    R = REPORT
+    N, T = R["nodes"], R["trace_len"]
+    runs = [run_verb(report_argv("deep", N, T), os.path.join(tmp, f"d{i}"))
+            for i in range(2)]
+    docs = [_report_doc("deep", r, card) for r in runs]
+    if runs[0]["out"] != runs[1]["out"]:
+        raise SmokeFailure("report: two perf-report --engine deep runs "
+                           "differ")
+    ps = _per_step(docs[0])
+    if ps["launches"] != {"pre": 1, "flags": 1, "replay": 1}:
+        raise SmokeFailure(f"report: deep per-step record launched "
+                           f"{ps['launches']}, want one of each fold mode")
+    fold_prof = _route_launches("deep", False)
+    say("report", f"perf-report --engine deep at {N} x {T} (the fold "
+        f"path) twice: byte-identical documents; {docs[0]['steps']} rounds,"
+        f" {docs[0]['retired']} retired; per-step record (sync.round_step):"
+        f" launches {ps['launches']}, {ps['ops']} aten ops, "
+        f"{ps['hbm_bytes']:.0f} HBM bytes, bytes/instr "
+        f"{docs[0]['bytes_per_instr']}, bound "
+        f"{docs[0]['bound']}; the profiler's device launches a round on "
+        f"this route: {fold_prof:.1f}; runs {runs[0]['wall']:.1f} / "
+        f"{runs[1]['wall']:.1f} s ({card})")
+    small = run_verb(report_argv("deep", R["small_nodes"],
+                                 R["small_trace_len"], "--chunk",
+                                 str(R["small_chunk"])),
+                     os.path.join(tmp, "d256"))
+    card_doc = _report_doc("deep 256", small, card)
+    cpu = _join_children(cpu_kids, R["child_timeout_s"])
+    cpu_doc = _report_doc("deep 256 --cpu", cpu["deep256 cpu"], card)
+    for key in ("steps", "retired", "config"):
+        if card_doc[key] != cpu_doc[key]:
+            raise SmokeFailure(f"report: deep {R['small_nodes']} {key} "
+                               f"differs, card {card_doc[key]} vs --cpu "
+                               f"{cpu_doc[key]}")
+    a, b = _per_step(card_doc), _per_step(cpu_doc)
+    say("report", f"perf-report --engine deep at {R['small_nodes']} x "
+        f"{R['small_trace_len']}, chunk {R['small_chunk']}, card and --cpu "
+        f"(a child process): steps {card_doc['steps']}, retired "
+        f"{card_doc['retired']} and config equal; per-step record: card "
+        f"{a['ops']} ops, {a['hbm_bytes']:.0f} HBM bytes, launches "
+        f"{a['launches']} / CPU {b['ops']} ops, {b['hbm_bytes']:.0f} bytes, "
+        f"launches {b['launches']} (the card's fold kernels replace plain "
+        f"ops); --cpu child {cpu['deep256 cpu']['wall']:.1f} s ({card})")
+    async_res = _join_children(card_kids, R["child_timeout_s"])["async"]
+    res = run_verb(report_argv("deep", N, T, "--pallas", "--timing", "--reps",
+                               str(R["timing_reps"])),
+                   os.path.join(tmp, "dp"))
+    doc = _report_doc("deep --pallas", res, card)
+    ps = _per_step(doc)
+    if ps["launches"] != {"round": 1} or not doc["config"]["pallas"]:
+        raise SmokeFailure(f"report: --pallas per-step record launched "
+                           f"{ps['launches']}, want one deep_round")
+    io = next(k for k in doc["kernels"]
+              if k["name"] == "deep.round_fused[io-contract]")
+    want = sum(drk.io_contract_bytes(perf_report.report_config("deep", N)))
+    if io["hbm_bytes"] != want:
+        raise SmokeFailure(f"report: io-contract row {io['hbm_bytes']} != "
+                           f"the wrapper's contract {want}")
+    t = doc["timing"]
+    fused_prof = _route_launches("deep", True)
+    say("report", f"perf-report --engine deep --pallas --timing --reps "
+        f"{R['timing_reps']} at {N} x {T} (the fused round): per-step "
+        f"launches {ps['launches']}, {ps['ops']} aten ops, "
+        f"{ps['hbm_bytes']:.0f} HBM bytes; io-contract row "
+        f"{io['hbm_bytes']:.0f} B = sum(deep_round_kernel.io_contract_bytes)"
+        f"; fused bytes/instr {doc['fused']['bytes_per_instr']} vs "
+        f"{doc['bytes_per_instr']}; ns/instr {t['ns_per_instr']}, "
+        f"measured/model {t.get('measured_over_model')}, dispatch_bound "
+        f"{t['dispatch_bound']}; the profiler's device launches a round on "
+        f"this route: {fused_prof:.1f} ({card})")
+    return async_res
+
+
+def report_async_argv() -> list:
+    R = REPORT
+    return report_argv("async", R["nodes"], R["async_trace_len"],
+                       "--shards", str(R["shards"]))
+
+
+def _report_async(card: str, res: dict) -> None:
+    """The async report's checks on ``res``, the child's run_verb of
+    ``report_async_argv()`` on the card (beside the deep reports: both
+    host-bound, the card idle most of the time)."""
+    R = REPORT
+    doc = _report_doc("async", res, card)
+    tr = doc.get("transport")
+    if not tr or tr["n_shards"] != R["shards"] or \
+            not tr["rdma_strictly_fewer"]:
+        raise SmokeFailure(f"report: async transport row {tr}")
+    ps = _per_step(doc)
+    prof = _route_launches("async", False)
+    say("report", f"perf-report --engine async at {R['nodes']} x "
+        f"{R['async_trace_len']} --shards {R['shards']}: {doc['steps']} "
+        f"cycles, {doc['retired']} retired; per-step record (step.cycle): "
+        f"{ps['ops']} aten ops, {ps['hbm_bytes']:.0f} HBM bytes, launches "
+        f"{ps['launches']}; bytes/instr {doc['bytes_per_instr']}; the "
+        f"profiler's device launches a cycle: {prof:.1f}; transport row: "
+        f"all_to_all {tr['bytes_per_round']['all_to_all']} vs rdma "
+        f"{tr['bytes_per_round']['rdma']} B a round "
+        f"({100 * tr['savings_frac']:.1f} % less); {res['wall']:.1f} s (a "
+        f"child process, beside the deep reports) ({card})")
+
+
+def _report_bench(tmp: str, card: str) -> str:
+    """bench at deep@4096 (REPORT["bench_trace_len"] instructions a node:
+    the --profile-dir trace of 4096 is ~190 MB) with the instruments and
+    --record, twice; the entries' cost vectors equal and bench-diff
+    --bytes exits 0. Returns the history path."""
+    import contextlib
+    import io
+    import os
+    from ue22cs343bb1_openmp_assignment_tpu_torch.obs import (
+        bench_diff, history, profiler)
+    R = REPORT
+    path = os.path.join(tmp, "report_history.jsonl")
+    lines = []
+    for i in range(2):
+        pdir = os.path.join(tmp, f"prof{i}")
+        line, _ = _bench_line([
+            "--fused-round", "auto", "--kernel-costs", "--timer-check",
+            "--profile-dir", pdir, "--record", path, "--reps",
+            str(R["bench_reps"]), "--trace-len", str(R["bench_trace_len"])])
+        kc = line["phases"]["kernels"]
+        if not line["timer_check"]["barrier_trustworthy"]:
+            raise SmokeFailure(f"report: bench timer check "
+                               f"{line['timer_check']}")
+        if not kc["available"] or kc["launches"] != {"round": 64}:
+            raise SmokeFailure(f"report: --kernel-costs {kc}")
+        trace = os.path.join(pdir, profiler.TRACE_FILE)
+        with open(trace) as f:
+            if "deep_round_kernel" not in f.read():
+                raise SmokeFailure("report: the --profile-dir trace names "
+                                   "no deep_round_kernel")
+        size = os.path.getsize(trace)
+        os.remove(trace)
+        lines.append((line, size))
+    entries = history.load(path)
+    for e in entries:
+        history.validate_entry(e)
+    a, b = entries
+    if a["cost"] != b["cost"] or a["hlo_fingerprint"] != \
+            b["hlo_fingerprint"] or not a["cost"]["cost_available"]:
+        raise SmokeFailure("report: the two recorded cost vectors differ")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = bench_diff.main_bench_diff(["--history", path, "--against-last",
+                                         "--bytes"])
+    if rc != 0:
+        raise SmokeFailure(f"report: bench-diff --bytes exit {rc}: "
+                           f"{buf.getvalue()[-600:]}")
+    per = a["cost"]["kernels"][a["cost"]["per_step_kernel"]]
+    (l0, s0), (l1, s1) = lines
+    say("report", f"bench deep@4096 x {R['bench_trace_len']} --fused-round "
+        f"auto --kernel-costs --timer-check --profile-dir --record, --reps "
+        f"{R['bench_reps']}, twice: instrs/sec {l0['instrs_per_sec']:.1f} / "
+        f"{l1['instrs_per_sec']:.1f}; timer check: block "
+        f"{l0['timer_check']['block_until_ready_s']} s, tail "
+        f"{l0['timer_check']['device_get_tail_s']} s, trustworthy; "
+        f"--kernel-costs (one chunk): {l0['phases']['kernels']['ops']} aten "
+        f"ops, launches {l0['phases']['kernels']['launches']}, temp "
+        f"{l0['phases']['kernels']['memory'].get('temp_size_in_bytes')} B; "
+        f"traces {s0} / {s1} B naming deep_round_kernel; entries valid, "
+        f"hlo_fingerprint {a['hlo_fingerprint']} both, bytes/instr "
+        f"{a['cost']['bytes_per_instr']} both (per-step "
+        f"{per['hbm_bytes']:.0f} B), bench-diff --bytes exit 0; round "
+        f"launches in the timed run {l0['launches']['round']} ({card})")
+    return path
+
+
+def _report_dashboard(tmp: str, card: str, hist: str) -> None:
+    """dashboard over the recorded history and the archives: the card's
+    point in the roofline scatter; the archives alone render the golden
+    files."""
+    import os
+    import torch
+    root = os.path.dirname(os.path.abspath(__file__))
+    archives = ([os.path.join(root, f"BENCH_r0{i}.json") for i in range(1, 6)]
+                + [os.path.join(root, f"MULTICHIP_r0{i}.json")
+                   for i in range(1, 7)])
+    out = os.path.join(tmp, "dash")
+    html, md = os.path.join(out, "d.html"), os.path.join(out, "d.md")
+    res = run_verb(["dashboard", "--history", hist, *archives, "--html",
+                    html, "--md", md], out)
+    if res["rc"] != 0:
+        raise SmokeFailure(f"report: dashboard exit {res['rc']}")
+    with open(html) as f:
+        page = f.read()
+    kind = f"{torch.cuda.get_device_name(0)} (ridge 5.0 flop/B)"
+    if kind not in page:
+        raise SmokeFailure(f"report: the dashboard's roofline has no "
+                           f"{kind!r}")
+    res = run_verb(["dashboard", *archives, "--html", html, "--md", md], out)
+    gold = {}
+    for got, name in ((html, "dashboard.html"), (md, "dashboard.md")):
+        with open(got, "rb") as f, open(os.path.join(
+                root, "tests", "golden", name), "rb") as g:
+            gold[name] = f.read() == g.read()
+    if res["rc"] != 0 or not all(gold.values()):
+        raise SmokeFailure(f"report: the archive-only dashboard differs "
+                           f"from tests/golden: {gold}")
+    say("report", f"dashboard over the recorded history and the archives: "
+        f"the roofline scatter has the card's point ({kind}); the "
+        f"archive-only render equals tests/golden/dashboard.html and .md "
+        f"byte for byte ({card})")
+
+
+def phase_report(card: str) -> None:
+    """The report phase in a fresh interpreter (``report_main``), as the
+    history phase runs. Its lines go to this process's stdout; a failure
+    there fails here."""
+    import os
+    import signal
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "sys.exit(chip_smoke.report_main(sys.argv[1]))", card],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        start_new_session=True)
+    try:
+        rc = proc.wait(timeout=REPORT["phase_timeout_s"])
+    except subprocess.TimeoutExpired:
+        raise SmokeFailure(f"report phase timed out after "
+                           f"{REPORT['phase_timeout_s']:.0f} s")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    if rc != 0:
+        raise SmokeFailure(f"report phase exited {rc}")
+    say("report", f"report phase took {time.perf_counter() - t0:.1f} s "
+        "(a child process)")
+
+
+def report_main(card: str) -> int:
+    """perf-report, the bench's instruments and the dashboard on the card
+    (slice 14); prints FAIL and exits 1 on a failure."""
+    import os
+    import tempfile
+    t0 = time.perf_counter()
+    R = REPORT
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            kids = _start_children(tmp, [
+                ([("deep256 cpu",
+                   report_argv("deep", R["small_nodes"],
+                               R["small_trace_len"], "--chunk",
+                               str(R["small_chunk"]), "--cpu"),
+                   os.path.join(tmp, "cpu256"))], R["cpu_threads"]),
+                ([("async", report_async_argv(), os.path.join(tmp, "a"))],
+                 None)])
+            try:
+                async_res = _report_deep(tmp, card, kids[:1], kids[1:])
+            finally:
+                for proc, _, _ in kids:
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait()
+            _report_async(card, async_res)
+            hist = _report_bench(tmp, card)
+            _report_dashboard(tmp, card, hist)
+    except (SmokeFailure, AssertionError, RuntimeError, ValueError,
+            KeyError) as e:
+        print(f"FAIL: report: {type(e).__name__}: {e}", flush=True)
+        return 1
+    say("report", f"report work took {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def phase_multi_card() -> None:
     import torch
     from ue22cs343bb1_openmp_assignment_tpu_torch.parallel import ring_kernel
@@ -4166,6 +4527,7 @@ def main(argv=None) -> int:
         timed("obs", phase_obs, card)
         timed("serve", phase_serve, card)
         timed("history", phase_history, card)
+        timed("report", phase_report, card)
         say("time", ", ".join(f"{k} {v:.1f} s" for k, v in times.items()))
     except (SmokeFailure, AssertionError, RuntimeError, ValueError) as e:
         print(f"FAIL: {type(e).__name__}: {e}", flush=True)

@@ -232,11 +232,45 @@ RECORD_CASES = {
 }
 
 
+def _fresh_records(mode: str, chunk: int) -> tuple:
+    """Dispatch records (one round or cycle, one chunk of the runner) of
+    the config ``bench`` runs for ``RECORD_CASES[mode]`` on the CPU,
+    built here from the bench's config functions."""
+    import dataclasses
+
+    from ue22cs343bb1_openmp_assignment_tpu_torch.models.system import (
+        CoherenceSystem)
+    from ue22cs343bb1_openmp_assignment_tpu_torch.obs import roofline
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import step
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
+        sync_engine as se)
+    if mode == "async":
+        cfg = dataclasses.replace(bench.async_config(64, 16),
+                                  transport="rdma", proc_local_permille=800)
+        st0 = CoherenceSystem.from_workload(cfg, "uniform", device="cpu",
+                                            local_frac=0.8).state
+        return (roofline.kernel_record("step.cycle", step.cycle, cfg, st0),
+                roofline.kernel_record(f"step.run_chunked[chunk={chunk}]",
+                                       step.run_chunked_to_quiescence, cfg,
+                                       st0, chunk, chunk))
+    cfg = (bench.sync_config(64) if mode == "sync"
+           else bench.deep_config(64))
+    st0 = se.procedural_state(cfg, 16, device="cpu")
+    return (roofline.kernel_record("sync.round_step", se.round_step, cfg,
+                                   st0),
+            roofline.kernel_record(f"sync.run_to_quiescence[chunk={chunk}]",
+                                   se.run_sync_to_quiescence, cfg, st0,
+                                   chunk, chunk))
+
+
 @pytest.mark.parametrize("mode", sorted(RECORD_CASES))
 def test_bench_record_on_cpu(tmp_path, capsys, mode):
     """``bench --record`` on the CPU appends one v1.4 entry that both
     packages validate, carrying the bench line's numbers and a config
-    fingerprint with exactly the JAX bench's keys."""
+    fingerprint with exactly the JAX bench's keys; on the deep, sync and
+    async solo runs its cost vector is that of a fresh dispatch record of
+    the same config (``hlo_fingerprint`` the runner record's), on the
+    serving runs both stay null, as in JAX."""
     path = tmp_path / "h.jsonl"
     rc = bench.main([*RECORD_CASES[mode], "--chunk", "8", "--reps", "2",
                      "--device", "cpu", "--record", str(path)])
@@ -248,7 +282,16 @@ def test_bench_record_on_cpu(tmp_path, capsys, mode):
     assert entry["rep_times_s"] == line.get("reps_s", [line["wall_s"]])
     assert entry["retired"] == line.get("instrs_retired")
     assert entry["quiescent"] is True and entry["device_kind"] == "cpu"
-    assert entry["hlo_fingerprint"] is None and entry["cost"] is None
+    if mode in ("serve", "soak"):
+        assert entry["hlo_fingerprint"] is None and entry["cost"] is None
+    else:
+        from ue22cs343bb1_openmp_assignment_tpu_torch.obs import roofline
+        assert history.validate_entry(entry) == entry
+        per, run = _fresh_records(mode, 8)
+        assert entry["cost"] == json.loads(json.dumps(roofline.cost_vector(
+            per, run, entry["steps"], entry["retired"])))
+        assert entry["cost"]["cost_available"] is True
+        assert entry["hlo_fingerprint"] == run["hlo_fingerprint"]
     assert entry["config"]["platform"] == "cpu"
     jax_keys = _jax_fingerprint_keys()
     if mode == "soak":

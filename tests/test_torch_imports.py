@@ -61,7 +61,9 @@ def test_scans_cover_the_copied_modules():
                  "obs.recording", "obs.promexpo", "obs.fleet",
                  "daemon.protocol", "daemon.bucketing", "daemon.server",
                  "daemon.client", "obs.history", "obs.regress",
-                 "obs.bench_diff", "replay"):
+                 "obs.bench_diff", "replay", "obs.roofline",
+                 "obs.profiler", "obs.perf_report", "obs.dashboard",
+                 "obs.dashboard_verb"):
         assert f"{PKG}.{copy}" in mods, copy
 
 

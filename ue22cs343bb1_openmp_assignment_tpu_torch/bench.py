@@ -8,6 +8,7 @@
         [--deep-slots S] [--deep-g G] [--deep-waves W] [--deep-slack K]
         [--read-storm] [--no-exact-flags] [--[no-]procedural]
         [--profile ROUNDS] [--device cuda|cpu] [--record PATH]
+        [--kernel-costs] [--timer-check] [--profile-dir DIR]
     python -m ue22cs343bb1_openmp_assignment_tpu_torch.bench --engine async
         [--workload NAME] [--queue-capacity Q] [--admission A] [--shards D]
         [--transport rdma|all_to_all] [--profile CYCLES]
@@ -107,10 +108,30 @@ async node's outstanding requests (``cfg.admission_window``), as in JAX.
 or cycles, retired instructions and quiescence, the config fingerprint
 with the JAX bench's keys (``platform`` ``gpu`` on the card, ``cpu`` on
 the CPU), ``device_kind`` (the card's name, or ``cpu``), the serve block
-of ``--serve`` and ``--soak`` and the latency block of ``--soak``. The
-XLA-only ``hlo_fingerprint`` and ``cost`` stay ``null``. Compare
+of ``--serve`` and ``--soak`` and the latency block of ``--soak``. On the
+deep, sync and async solo runs it also fills ``hlo_fingerprint`` and
+``cost`` from the dispatch records (``obs/roofline.kernel_record``) of
+one round or cycle and of one chunk of the runner, on the run's device
+and route: ``cost`` is ``roofline.cost_vector(per_step, runner, steps,
+retired)``, the input of ``bench-diff --bytes`` (JAX ``bench.py:894-930``;
+``null`` for ``--replicas`` above 1, ``--serve`` and ``--soak``, as in
+JAX). On the card a record that fails is an error; on the CPU it leaves
+a note and the two fields ``null``, as the JAX bench does. Compare
 entries with ``cache-sim-torch bench-diff --history PATH
 --against-last``.
+
+The instruments of the JAX bench (``bench.py:443``, ``:510-518``,
+``:820-845``), on the deep, sync and async runs: ``--kernel-costs``
+attaches ``obs.profiler.kernel_cost_report`` of one chunk of the
+headline runner (the dispatch record plus memory sizes) to the phase
+report (the JSON line's ``phases``: ``execute_dispatch`` and
+``device_get_sync`` of the timed runs, and ``kernels``);
+``--timer-check`` puts ``obs.profiler.timer_self_check`` of one run into
+the line (``timer_check``: is ``torch.cuda.synchronize()`` a real
+barrier?); ``--profile-dir DIR`` wraps the timed runs in
+``obs.profiler.capture(DIR)``, a torch.profiler Chrome trace in
+``DIR/trace.json`` (JAX's ``--profile DIR``; the port's ``--profile R``
+is its profiler window).
 
 The JSON line carries instrs/sec, rounds (cycles for the async engine),
 ms/round (ms/cycle), the card's name and power limit, the workload and
@@ -137,6 +158,8 @@ from ue22cs343bb1_openmp_assignment_tpu_torch.models.transactional import (
     TransactionalSystem)
 from ue22cs343bb1_openmp_assignment_tpu_torch.models.workloads import (
     GENERATORS)
+from ue22cs343bb1_openmp_assignment_tpu_torch.obs import profiler, roofline
+from ue22cs343bb1_openmp_assignment_tpu_torch.obs.phases import PhaseTimer
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
     deep_fold_kernel as dfk)
 from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
@@ -207,16 +230,20 @@ _COUNTED = {"round": drk.fused_round, "sync_burst": sbk.burst,
             "threefry": threefry_kernel.block}
 
 
+def counted_wrappers() -> dict:
+    """{kernel: wrapper} of every kernel of the port: each wrapper's
+    ``launches`` counts its kernel's launches."""
+    return dict(dfk.WRAPPERS, **_COUNTED)
+
+
 def reset_launch_counts() -> None:
-    dfk.reset_launch_counts()
-    for fn in _COUNTED.values():
+    for fn in counted_wrappers().values():
         fn.launches = 0
 
 
 def launch_counts() -> dict:
     """Launches of every kernel of the port since the last reset."""
-    return dict(dfk.launch_counts(),
-                **{k: fn.launches for k, fn in _COUNTED.items()})
+    return {k: fn.launches for k, fn in counted_wrappers().items()}
 
 
 def with_fused_round(cfg: SystemConfig, mode: str,
@@ -375,6 +402,18 @@ def build_parser() -> argparse.ArgumentParser:
                          "`cache-sim-torch bench-diff --history PATH "
                          "--against-last`")
     ap.add_argument("--profile", type=int, default=0, metavar="ROUNDS")
+    ap.add_argument("--profile-dir", metavar="DIR",
+                    help="capture a torch.profiler Chrome trace of the "
+                         "timed runs into DIR (obs.profiler.capture)")
+    ap.add_argument("--timer-check", action="store_true",
+                    help="run the obs.profiler timer self-check: is "
+                         "torch.cuda.synchronize() a real barrier here? "
+                         "The result rides in the JSON line")
+    ap.add_argument("--kernel-costs", action="store_true",
+                    help="attach the dispatch record of one chunk of the "
+                         "headline runner (aten ops, bytes, the port's "
+                         "kernel launches, memory sizes) to the phase "
+                         "report (obs.profiler.kernel_cost_report)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--queue-capacity", type=int, default=64)
     ap.add_argument("--shards", type=int, default=1)
@@ -485,24 +524,14 @@ def main(argv=None) -> int:
     # stay inside the claim-key round budget at large N (8191 rounds at
     # 65536 nodes), as the JAX bench does
     max_rounds = min(100_000, se.claim_max_rounds(cfg) - 1)
+    runner = se.run_ensemble_to_quiescence if ensemble \
+        else se.run_sync_to_quiescence
 
-    def one_run():
-        st = fresh()
-        _sync(dev)
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        if ensemble:
-            st = se.run_ensemble_to_quiescence(cfg, st, args.chunk,
-                                               max_rounds, args.fold_impl)
-        else:
-            st = se.run_sync_to_quiescence(cfg, st, args.chunk,
-                                           max_rounds=max_rounds,
-                                           fold_impl=args.fold_impl)
-        _sync(dev)
-        return time.perf_counter() - t0, st, launch_counts()
+    def run(st, limit=max_rounds):
+        return runner(cfg, st, args.chunk, limit, args.fold_impl)
 
-    one_run()                                   # warm-up, discarded
-    runs = [one_run() for _ in range(args.reps)]
+    timer = PhaseTimer()
+    runs = timed_runs(args, dev, fresh, run, timer)
     wall = statistics.median(r[0] for r in runs)
     st, launches = runs[0][1], runs[0][2]
     if not bool(st.quiescent()):
@@ -518,6 +547,7 @@ def main(argv=None) -> int:
            "procedural": procedural, "replicas": args.replicas,
            "fold_impl": args.fold_impl, "fused_round": cfg.fused_round,
            "window_kernels": cfg.pallas_burst, "launches": launches,
+           "phases": timer.report(),
            "config": {"nodes": args.nodes, "trace_len": args.trace_len,
                       "chunk": args.chunk, "deep_slots": cfg.deep_slots,
                       "deep_g": cfg.deep_ownerval_slots,
@@ -541,18 +571,100 @@ def main(argv=None) -> int:
             st = se.run_rounds(cfg, fresh(), 16, args.fold_impl)
             doc["profile"] = profile_rounds(cfg, st, args.profile,
                                             args.fold_impl)
+    instruments(args, dev, cfg, doc, timer, fresh, run,
+                lambda st: run(st, args.chunk))
     print(json.dumps(doc))
     if args.record:
         rep = (f", {args.replicas} replicas" if ensemble else "")
         rep += ", procedural" if procedural else ""
+        fp = vec = None
+        if not ensemble:
+            st0 = fresh()
+            fp, vec = cost_records(dev, lambda: (
+                roofline.kernel_record("sync.round_step", se.round_step,
+                                       cfg, st0, args.fold_impl),
+                roofline.kernel_record(
+                    f"sync.run_to_quiescence[chunk={args.chunk}]",
+                    se.run_sync_to_quiescence, cfg, st0, args.chunk,
+                    args.chunk, args.fold_impl)), rounds, retired)
         record(args, dev, f"{args.engine}@{args.nodes}", {
             "metric": f"simulated RD/WR instrs/sec @{args.nodes} cores "
                       f"({args.engine} engine, {args.workload}{rep}, 1 "
                       f"chip, {platform(dev)})",
             "value": doc["instrs_per_sec"], "unit": "instrs/sec",
             "vs_baseline": doc["instrs_per_sec"] / 1e8},
-            doc, rounds, True, run_fingerprint(args, max_rounds, procedural))
+            doc, rounds, True, run_fingerprint(args, max_rounds, procedural),
+            hlo_fingerprint=fp, cost=vec)
     return 0
+
+
+def timed_runs(args, dev: torch.device, fresh, run, timer) -> list:
+    """One discarded warm-up, then ``--reps`` timed runs of ``run(fresh())``
+    (inside ``obs.profiler.capture(--profile-dir)``): [(wall seconds,
+    final state, launch counts)], the split of each timed run into
+    ``execute_dispatch`` (the call returns) and ``device_get_sync``
+    (``torch.cuda.synchronize()`` returns) credited to ``timer``."""
+    def one_run(timer=None):
+        st = fresh()
+        _sync(dev)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        st = run(st)
+        t1 = time.perf_counter()
+        _sync(dev)
+        t2 = time.perf_counter()
+        if timer is not None:
+            timer.add("execute_dispatch", t1 - t0)
+            timer.add("device_get_sync", t2 - t1)
+        return t2 - t0, st, launch_counts()
+
+    one_run()                                   # warm-up, discarded
+    with profiler.capture(args.profile_dir):
+        return [one_run(timer) for _ in range(args.reps)]
+
+
+def instruments(args, dev: torch.device, cfg: SystemConfig, doc: dict,
+                timer, fresh, run, run_chunk, contracts=None) -> None:
+    """The JAX bench's ``--kernel-costs`` and ``--timer-check``: the
+    dispatch record of one chunk of the headline runner
+    (``run_chunk(state)``; ``cfg`` sizes its kernels' contracts)
+    attached to the phase report, and the timer self-check of one
+    ``run(fresh())`` in ``doc["timer_check"]``. On the card a record
+    that fails is an error."""
+    if args.kernel_costs:
+        rep = profiler.attach_kernel_costs(timer, run_chunk, fresh(),
+                                           cfg=cfg, contracts=contracts)
+        if dev.type == "cuda" and not rep["available"]:
+            raise RuntimeError(f"--kernel-costs: the dispatch record "
+                               f"failed: {rep.get('error')}")
+        doc["phases"] = timer.report()
+    if args.timer_check:
+        doc["timer_check"] = profiler.timer_self_check(
+            lambda: run(fresh()), reps=1)
+
+
+def cost_records(dev: torch.device, records, steps: int,
+                 retired: int) -> tuple:
+    """(hlo_fingerprint, cost vector) of a history entry from
+    ``records()``, the dispatch records (per step, runner) of the
+    measured config (JAX ``bench.py:894-930``): the runner's fingerprint
+    and ``roofline.cost_vector``. On the card a record that fails is an
+    error; on the CPU a failure leaves a note and (None, None), as the
+    JAX bench's "recording must never kill the bench" does."""
+    try:
+        per_rec, run_rec = records()
+        bad = [r for r in (per_rec, run_rec) if not r["cost_available"]]
+        if bad and dev.type == "cuda":
+            raise RuntimeError(f"dispatch record {bad[0]['name']} failed: "
+                               f"{bad[0].get('error')}")
+        return (run_rec.get("hlo_fingerprint")
+                or per_rec.get("hlo_fingerprint"),
+                roofline.cost_vector(per_rec, run_rec, steps, retired))
+    except Exception as e:
+        if dev.type == "cuda":
+            raise
+        print(f"note: cost vector unavailable: {e}", file=sys.stderr)
+        return None, None
 
 
 def engine_config(args, dev: torch.device) -> tuple:
@@ -611,28 +723,30 @@ def run_fingerprint(args, max_cycles: int, procedural: bool,
 
 def record(args, dev: torch.device, label: str, result: dict, doc: dict,
            steps: int, quiescent: bool, config: dict, serve=None,
-           latency=None) -> None:
+           latency=None, hlo_fingerprint=None, cost=None) -> None:
     """Append this run to the history at ``args.record``: one v1.4 entry
     (``obs.history.entry``) whose result is ``result``, whose extra comes
     from the bench's JSON line ``doc``, and whose fingerprint is
     ``config`` (the JAX bench's keys, ``bench.py:115-121``, ``:272-280``,
-    ``:605-619``) with the platform and ``smoke`` added."""
+    ``:605-619``) with the platform and ``smoke`` added; the solo runs
+    pass ``hlo_fingerprint`` and ``cost`` (``cost_records``)."""
     import os
 
     from ue22cs343bb1_openmp_assignment_tpu_torch.obs import history
     extra = {"engine": config["engine"],
              "rep_times_s": doc.get("reps_s") or [doc["wall_s"]],
              "elapsed_s": doc["wall_s"], "steps": steps,
-             "retired": doc.get("instrs_retired"), "quiescent": quiescent}
+             "retired": doc.get("instrs_retired"), "quiescent": quiescent,
+             "phases": doc.get("phases")}
     entry = history.entry(
         label=label, source="bench", result=result, extra=extra,
         config=dict(config, platform=platform(dev), smoke=False),
         sha=history.git_sha(os.path.dirname(os.path.dirname(
             os.path.abspath(__file__)))),
         captured_at=time.strftime("%Y-%m-%dT%H:%M:%S%z"),
-        device_kind=(torch.cuda.get_device_name(dev)
-                     if dev.type == "cuda" else "cpu"),
-        serve=serve, latency=latency)
+        device_kind=roofline.detect_device_kind(dev),
+        hlo_fingerprint=hlo_fingerprint, cost=cost, serve=serve,
+        latency=latency)
     history.append(args.record, entry)
     print(f"recorded to {args.record}", file=sys.stderr)
 
@@ -643,7 +757,7 @@ def async_main(args, dev: torch.device) -> int:
         CoherenceSystem)
     from ue22cs343bb1_openmp_assignment_tpu_torch.ops import step
     from ue22cs343bb1_openmp_assignment_tpu_torch.parallel import (
-        mesh, sharded_step)
+        mesh, sharded_step, shardmap_comm)
     if args.nodes % args.shards:
         print(f"error: --shards {args.shards} must divide --nodes "
               f"{args.nodes}", file=sys.stderr)
@@ -653,8 +767,8 @@ def async_main(args, dev: torch.device) -> int:
                      args.admission),
         transport=args.transport,
         proc_local_permille=int(args.local_frac * 1000))
-    deliver_fn = sharded_step.transport_deliver(
-        cfg, mesh.make_layout(args.nodes, args.shards, device=dev))
+    layout = mesh.make_layout(args.nodes, args.shards, device=dev)
+    deliver_fn = sharded_step.transport_deliver(cfg, layout)
     transport = getattr(deliver_fn, "transport", "none")
     max_cycles = 200 * args.trace_len
 
@@ -685,17 +799,8 @@ def async_main(args, dev: torch.device) -> int:
         def run(st):
             return step.run_cycles_profile(cfg, st, cap_cycles)[0]
 
-    def one_run():
-        st = fresh()
-        _sync(dev)
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        st = run(st)
-        _sync(dev)
-        return time.perf_counter() - t0, st, launch_counts()
-
-    one_run()                                   # warm-up, discarded
-    runs = [one_run() for _ in range(args.reps)]
+    timer = PhaseTimer()
+    runs = timed_runs(args, dev, fresh, run, timer)
     wall = statistics.median(r[0] for r in runs)
     st, launches = runs[0][1], runs[0][2]
     if not bool(st.quiescent()):
@@ -712,6 +817,7 @@ def async_main(args, dev: torch.device) -> int:
            "workload": args.workload, "procedural": False,
            "shards": args.shards, "transport": transport,
            "capture": mode, "launches": launches,
+           "phases": timer.report(),
            "config": {"nodes": args.nodes, "trace_len": args.trace_len,
                       "chunk": args.chunk,
                       "queue_capacity": cfg.queue_capacity,
@@ -731,8 +837,25 @@ def async_main(args, dev: torch.device) -> int:
             out = step.cycle(cfg, s, deliver_fn=deliver_fn, **kw)
             return out[0] if kw else out
         doc["profile"] = profile_steps(step_fn, st, args.profile)
+    ring = None
+    if transport == "rdma":
+        _, _, _, L, cap, Fw = shardmap_comm.geometry(cfg, layout, None)
+        ring = {"ring": ring_kernel.io_contract_bytes(args.shards, cap,
+                                                      2 + Fw)}
+    instruments(args, dev, cfg, doc, timer, fresh, run,
+                lambda st: step.run_chunked_to_quiescence(
+                    cfg, st, args.chunk, args.chunk, deliver_fn=deliver_fn),
+                contracts=ring)
     print(json.dumps(doc))
     if args.record:
+        # the JAX bench's records: the unrouted cycle and runner
+        st0 = fresh()
+        fp, vec = cost_records(dev, lambda: (
+            roofline.kernel_record("step.cycle", step.cycle, cfg, st0),
+            roofline.kernel_record(
+                f"step.run_chunked[chunk={args.chunk}]",
+                step.run_chunked_to_quiescence, cfg, st0, args.chunk,
+                args.chunk)), cycles, retired)
         record(args, dev, f"async@{args.nodes}"
                + ("+ledger" if args.ledger else "")
                + ("+cohprof" if args.coherence_profile else ""), {
@@ -742,7 +865,8 @@ def async_main(args, dev: torch.device) -> int:
                    "value": doc["instrs_per_sec"], "unit": "instrs/sec",
                    "vs_baseline": doc["instrs_per_sec"] / 1e8},
                doc, cycles, True, run_fingerprint(args, max_cycles, False,
-                                                  transport))
+                                                  transport),
+               hlo_fingerprint=fp, cost=vec)
     return 0
 
 

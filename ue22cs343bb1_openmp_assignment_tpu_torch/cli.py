@@ -52,12 +52,15 @@ the last two entries of a bench history (``bench --record``) with the
 statistics of ``obs/regress.py``; ``replay`` (``replay.py``) re-drives a
 serving recording or a soak incident's recording slice, on the card
 unless given ``--cpu``, and checks every job's dump digest.
+``perf-report`` (``obs/perf_report.py``) attributes a run's bytes and
+launches kernel by kernel (``obs/roofline.py``), on the card unless
+given ``--cpu``; ``dashboard`` (``obs/dashboard_verb.py``) renders a
+bench history into HTML and markdown and runs no engine.
 
-Not ported yet (ROADMAP.md, Queue 1): the verbs that dispatch to the
-analysis and the other observability modules (``analyze``,
-``perf-report``, ``dashboard``); each exits 2 with a note. Nor
-``--engine omp``, which builds the reference's own ``assignment.c``, not
-part of this repository.
+Not ported yet (ROADMAP.md, Queue 1): ``analyze``, the verb of the
+analysis modules; it exits 2 with a note. Nor ``--engine omp``, which
+builds the reference's own ``assignment.c``, not part of this
+repository.
 """
 
 from __future__ import annotations
@@ -71,18 +74,20 @@ import sys
 import numpy as np
 
 #: the JAX CLI's verbs, which dispatch to modules the port does not have
-#: yet (ROADMAP.md, Queue 1 items 4 and 7)
-LATER_VERBS = ("analyze", "perf-report", "dashboard")
+#: yet (ROADMAP.md, Queue 1 item 7)
+LATER_VERBS = ("analyze",)
 
 #: the serving verbs (JAX ``cli.py:634-655``) and the host verbs
-#: ``bench-diff`` and ``replay`` (``:616-618``, ``:656-659``):
-#: verb -> (module, function)
+#: ``bench-diff``, ``replay``, ``perf-report`` and ``dashboard``
+#: (``:616-618``, ``:656-659``, ``:625-633``): verb -> (module, function)
 SERVING_VERBS = {
     "serve": ("serve", "main"), "soak": ("soak", "main"),
     "daemon": ("daemon.server", "main"), "submit": ("daemon.client", "main"),
     "watch": ("daemon.client", "main_watch"), "top": ("obs.fleet", "main"),
     "bench-diff": ("obs.bench_diff", "main_bench_diff"),
-    "replay": ("replay", "main")}
+    "replay": ("replay", "main"),
+    "perf-report": ("obs.perf_report", "main_perfreport"),
+    "dashboard": ("obs.dashboard_verb", "main_dashboard")}
 
 
 def build_parser() -> argparse.ArgumentParser:

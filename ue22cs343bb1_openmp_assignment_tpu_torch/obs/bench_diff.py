@@ -8,9 +8,12 @@ incomparable pair. It reads either package's bench history
 (``cache-sim/bench/v1`` to ``v1.4``, ``obs/history.py``), archived round
 captures (``BENCH_r*.json``) and raw bench output, and adjudicates them with
 ``obs/regress.py``: the Mann-Whitney U test on rep times, the exact cost
-gate (``--bytes``; the port records no cost vector, so on its entries the
-gate answers as the JAX verb does on cost-less entries) or the latency
-samples (``--latency``). Host-side only: it runs no engine.
+gate (``--bytes``) or the latency samples (``--latency``). On the port's
+entries ``--bytes`` compares real cost vectors: ``bench --record`` fills
+``cost`` and ``hlo_fingerprint`` on its deep, sync and async solo runs
+from the dispatch records of one round or cycle and one chunk of the
+runner (``obs/roofline.kernel_record``). Host-side only: it runs no
+engine.
 
 Named ``bench_diff.py`` because ``cli.py`` is the port's top-level CLI.
 """
