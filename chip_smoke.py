@@ -209,6 +209,20 @@ Phases (each prints its own line; any failure exits non-zero):
    vectors, ``bench-diff --bytes`` exit 0); ``dashboard`` over that
    history and the archives (the card's point in the roofline scatter;
    the archives alone render tests/golden/dashboard.* byte for byte).
+15. analyze (slice 15; sizes in ANALYZE): ``cache-sim-torch analyze
+   --table --litmus --json`` in this process on the card (the model
+   checker over the six builtin scopes, verify_table over the three
+   tables and conformance on 2n2h, the whole MESI litmus suite with
+   iriw, the trace lint): exit 0, the model_check, table and litmus
+   blocks' sha256 equal to the JAX package's (ANALYZE_REFERENCE, from
+   scripts/analyze_reference.py), no port kernel launched, each prong's
+   wall seconds and oracle batches; each handler mutation,
+   ``table_guard_overlap`` and ``stale_fill_from_invalid`` exit 1 with
+   the JAX package's finding; an oracle batch of the MESI handlers and
+   of the MOESI table phase under a torch.profiler window (device
+   launches, busy ms, idle share); 16 jobs of ``serve.mixed_jobs`` at 16
+   x 16 under moesi and under mesif served on the card, every job's
+   digest equal to ANALYZE_REFERENCE, threefry launched.
 
 Each phase's seconds are printed after the last phase.
 ``python3 chip_smoke.py --serve-run 1024`` runs only the serving run,
@@ -4393,6 +4407,184 @@ def report_main(card: str) -> int:
     return 0
 
 
+# -- analyze (slice 15) -----------------------------------------------------
+
+#: the table-protocol serving mix the phase runs (the defaults of
+#: scripts/analyze_reference.py's --jobs/--nodes/--trace-len/--slots/
+#: --chunk/--hex; a job's digest depends on neither its slot nor its
+#: wave) and the oracle batches of its profiler window
+ANALYZE = dict(jobs=16, nodes=16, trace_len=16, slots=16, chunk=16, hex=12,
+               profile_batches=8)
+
+#: the JAX package's ``cache-sim analyze --table --litmus`` report blocks
+#: (sha256 of each under sort_keys, ``analysis.runner.block_digests``) and
+#: the job digests of ``serve.mixed_jobs(16, 16, 16)`` under moesi and
+#: mesif, from ``JAX_PLATFORMS=cpu python scripts/analyze_reference.py``
+ANALYZE_REFERENCE = {
+    "model_check": (
+        "cfc48e4e706708681fe1279b7715de7cf0d07c3874c15b86ace33a97"
+        "5bd0b3d4"),
+    "table": (
+        "c51a8a6b2c8161b4e153e189d03491bfe6dca337b3f33abdbcd41ec6"
+        "22b93a2f"),
+    "litmus": (
+        "2b37ba7c4314eff40c9d61092cbd1e6f3fbe725a6345c4c8c98d71ca"
+        "f65a3951"),
+    "serve": {
+        "moesi": (
+            "97ed85b864c3d004ff2acc1d03035d909637ff85d107cbb89f086cd04701"
+            "948d102d464fac9882db5d944082751203c9131096edd60913be73cf02df"
+            "00a89e35c71352452f4ce98e0c4f829b587eae47e255ee6db0f0ebda2739"
+            "8efb9710d8fd"),
+        "mesif": (
+            "28b7a28a93df485ffcb54ac2cb3acd18edf9ff85d107cbb825221dcddf2d"
+            "b88c1b40cc56a69394cb18504082751203c9131096edd6093b1c226a4ee2"
+            "6af1ed4e71bd52452f4ce98ead24c4688633201a7292afe6d5fbcc466231"
+            "aab950438937"),
+    },
+}
+
+
+def _analyze_json(tmp: str, label: str, argv: list) -> tuple:
+    """``cache-sim-torch analyze ARGV --json`` in this process on the
+    card: (exit code, report, wall seconds)."""
+    import os
+    from ue22cs343bb1_openmp_assignment_tpu_torch import cli
+    path = os.path.join(tmp, f"{label}.json")
+    t0 = time.perf_counter()
+    rc = cli.main(["analyze", *argv, "-q", "--json", path])
+    took = time.perf_counter() - t0
+    with open(path) as fh:
+        return rc, json.load(fh), took
+
+
+def _oracle_profile(card: str) -> None:
+    """Device launches, busy ms and idle share of one oracle batch (the
+    64 staged transitions of a BFS level moved to the card, the vmapped
+    ``step.cycle`` and the engagement probe, the read-back), for the
+    handler phase and the MOESI table phase, over a torch.profiler
+    window of ANALYZE["profile_batches"] batches."""
+    from ue22cs343bb1_openmp_assignment_tpu_torch import bench
+    from ue22cs343bb1_openmp_assignment_tpu_torch.analysis import (
+        conformance, litmus, model_check)
+    scope = model_check.builtin_scopes()["4n1a_sym"]
+    for label, sc, mp in (
+            ("mesi handlers", scope, None),
+            ("moesi table", conformance.variant_scope(scope, "moesi"),
+             litmus.message_phase_for("moesi"))):
+        ck = model_check.ModelChecker(sc, message_phase=mp)
+        a0 = ck._a0
+        evs = model_check.enabled_events(sc, a0)
+        staged = [ck._stage(a0, evs[i % len(evs)])
+                  for i in range(model_check._BATCH)]
+        ck.step_batch(ck._batched(staged))
+        prof = bench.profile_steps(
+            lambda _: ck.step_batch(ck._batched(staged)), None,
+            ANALYZE["profile_batches"])
+        say("analyze", f"oracle batch ({label}, 64 transitions of "
+            f"{sc.name}): {prof['device_launches_per_round']:.1f} device "
+            f"launches, {prof['wall_ms_per_round']:.3f} ms wall under the "
+            f"profiler, device busy {prof['device_busy_ms_per_round']:.4f} "
+            f"ms, idle share {prof['device_idle_share']:.3f}; {card}")
+
+
+def _analyze_serve(tmp: str, card: str) -> None:
+    """The moesi and mesif mixes served on the card, every job's digest
+    equal to ANALYZE_REFERENCE, the traces drawn through threefry."""
+    import os
+    from ue22cs343bb1_openmp_assignment_tpu_torch import bench, serve
+    A = ANALYZE
+    for proto in ("moesi", "mesif"):
+        specs = serve.mixed_jobs(A["jobs"], nodes=A["nodes"],
+                                 trace_len=A["trace_len"], protocol=proto)
+        out = os.path.join(tmp, proto)
+        bench.reset_launch_counts()
+        t0 = time.perf_counter()
+        doc = serve.serve(specs, slots=A["slots"], chunk=A["chunk"],
+                          queue_capacity=64, out_dir=out)
+        took = time.perf_counter() - t0
+        _check_launches(f"analyze serve {proto}", bench.launch_counts(),
+                        {"threefry": ">0"})
+        got = "".join(serve.job_digest(
+            serve.read_job_dumps(os.path.join(out, s.name), A["nodes"]),
+            doc["jobs"][s.name]["metrics"])[:A["hex"]] for s in specs)
+        if doc["jobs_quiesced"] != A["jobs"]:
+            raise SmokeFailure(f"analyze serve {proto}: "
+                               f"{doc['jobs_quiesced']} of {A['jobs']} "
+                               "jobs quiesced")
+        if got != ANALYZE_REFERENCE["serve"][proto]:
+            raise SmokeFailure(f"analyze serve {proto}: job digests differ "
+                               "from ANALYZE_REFERENCE")
+        say("analyze", f"serve {A['jobs']} {proto} jobs "
+            f"({A['nodes']} x {A['trace_len']}, {A['slots']} slots, "
+            f"{len(doc['waves'])} waves) on the card: every digest equal "
+            f"to the JAX package's, {took:.2f} s wall; {card}")
+
+
+def phase_analyze(card: str) -> None:
+    """``cache-sim-torch analyze --table --litmus --json`` on the card
+    (iriw included), its report blocks equal to the JAX package's
+    (ANALYZE_REFERENCE) and no port kernel launched; each handler
+    mutation, a table and a consistency mutation caught with the JAX
+    package's finding; an oracle batch under the profiler; the moesi and
+    mesif serving mixes."""
+    import tempfile
+    from ue22cs343bb1_openmp_assignment_tpu_torch import bench
+    from ue22cs343bb1_openmp_assignment_tpu_torch.analysis import (
+        mutations, runner)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        bench.reset_launch_counts()
+        rc, doc, took = _analyze_json(tmp, "gate", ["--table", "--litmus"])
+        _check_launches("analyze", bench.launch_counts(), {})
+        if rc != 0 or not doc["ok"]:
+            raise SmokeFailure(f"analyze --table --litmus exited {rc}")
+        got = runner.block_digests(doc)
+        for block, digest in got.items():
+            if digest != ANALYZE_REFERENCE[block]:
+                raise SmokeFailure(f"analyze: the {block} block differs "
+                                   "from the JAX package's report")
+        states = doc["litmus"]["mesi"]["iriw"]["stats"]["states"]
+        say("analyze", f"analyze --table --litmus on the card: exit 0, "
+            f"blocks {', '.join(got)} equal to the JAX package's (iriw "
+            f"{states} states), 0 lint findings, {took:.2f} s wall; "
+            + "; ".join(f"{k} {p['seconds']:.2f} s, {p['oracle_batches']} "
+                        f"oracle batches"
+                        for k, p in doc["prongs"].items()) + f"; {card}")
+        t1 = time.perf_counter()
+        for name, (_, scope, expected) in mutations.MUTATIONS.items():
+            rc, doc, _ = _analyze_json(tmp, name, ["--mutation", name,
+                                                   "--skip-lint"])
+            found = [v["name"] for v in doc["model_check"][scope]
+                     ["violations"]]
+            if rc != 1 or expected not in found:
+                raise SmokeFailure(f"analyze --mutation {name}: exit {rc}, "
+                                   f"findings {found}, want {expected}")
+        rc, doc, _ = _analyze_json(tmp, "table", [
+            "--table", "--skip-model-check", "--skip-lint", "--mutation",
+            "table_guard_overlap"])
+        kinds = [f["kind"] for f in doc["table"]["verify"]["mesi"]
+                 ["findings"]]
+        if rc != 1 or "determinism_overlap" not in kinds:
+            raise SmokeFailure(f"analyze table_guard_overlap: exit {rc}, "
+                               f"findings {sorted(set(kinds))}")
+        rc, doc, _ = _analyze_json(tmp, "consistency", [
+            "--litmus", "--skip-model-check", "--skip-lint", "--mutation",
+            "stale_fill_from_invalid"])
+        rep = doc["litmus"]["mesi"]["mp_reload"]
+        if rc != 1 or rep["ok"] is not False or not rep["unexpected"]:
+            raise SmokeFailure(f"analyze stale_fill_from_invalid: exit {rc}"
+                               f", litmus mp_reload {rep}")
+        say("analyze", f"{len(mutations.MUTATIONS)} handler mutations, "
+            "table_guard_overlap (determinism_overlap) and "
+            "stale_fill_from_invalid (mp_reload forbidden outcome "
+            f"{rep['unexpected'][0]}) each exit 1 with the JAX package's "
+            f"finding, {time.perf_counter() - t1:.2f} s wall; {card}")
+        _oracle_profile(card)
+        _analyze_serve(tmp, card)
+    say("analyze", f"analyze phase took {time.perf_counter() - t0:.1f} s")
+
+
 def phase_multi_card() -> None:
     import torch
     from ue22cs343bb1_openmp_assignment_tpu_torch.parallel import ring_kernel
@@ -4528,6 +4720,7 @@ def main(argv=None) -> int:
         timed("serve", phase_serve, card)
         timed("history", phase_history, card)
         timed("report", phase_report, card)
+        timed("analyze", phase_analyze, card)
         say("time", ", ".join(f"{k} {v:.1f} s" for k, v in times.items()))
     except (SmokeFailure, AssertionError, RuntimeError, ValueError) as e:
         print(f"FAIL: {type(e).__name__}: {e}", flush=True)

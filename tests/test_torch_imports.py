@@ -67,6 +67,19 @@ def test_scans_cover_the_copied_modules():
         assert f"{PKG}.{copy}" in mods, copy
 
 
+def test_scans_cover_the_analysis_copies():
+    """The analysis gate's modules (slice 15) are among the scanned
+    modules: the port keeps its own copies of the JAX package's
+    jax-free checkers (verify_table, litmus, lint_trace, runner)."""
+    mods = {m for m, _ in _port_modules()}
+    for copy in ("analysis", "analysis.__main__", "analysis.protocol_table",
+                 "analysis.verify_table", "analysis.model_check",
+                 "analysis.conformance", "analysis.mutations",
+                 "analysis.litmus", "analysis.lint_trace",
+                 "analysis.runner"):
+        assert f"{PKG}.{copy}" in mods, copy
+
+
 @pytest.mark.parametrize("path", [p for _, p in _port_modules()]
                          + [ROOT / "chip_smoke.py"],
                          ids=lambda p: p.name)

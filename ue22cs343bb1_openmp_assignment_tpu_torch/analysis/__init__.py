@@ -1,0 +1,21 @@
+"""The analysis gate's protocol half, ported from the JAX package.
+
+* :mod:`.model_check`: the small-scope explicit-state model checker,
+  with ``ops/step.cycle`` under ``torch.func.vmap`` as its transition
+  oracle (on the card unless ``device="cpu"``), symmetry reduction and
+  SCC-based livelock detection;
+* :mod:`.protocol_table`: the declarative MESI/MOESI/MESIF tables and
+  their compiler to a torch ``message_phase``; :mod:`.verify_table` their
+  static passes; :mod:`.conformance` the table-vs-handlers gate;
+* :mod:`.litmus`: the memory-consistency litmus suite, enumerated by the
+  model checker;
+* :mod:`.lint_trace`: the AST linter of the port's device code;
+* :mod:`.mutations`: the seeded bugs every gate must catch;
+  :mod:`.runner`: the ``analyze`` verb.
+
+The fuzzer, the shrinker and the jaxpr walkers of the JAX package's
+``analysis/`` are not ported yet (ROADMAP.md, Queue 1).
+"""
+
+from ue22cs343bb1_openmp_assignment_tpu_torch.analysis.model_check import (  # noqa: F401
+    ModelChecker, Scope, builtin_scopes, check_scope)

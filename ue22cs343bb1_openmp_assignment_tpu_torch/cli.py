@@ -55,12 +55,13 @@ unless given ``--cpu``, and checks every job's dump digest.
 ``perf-report`` (``obs/perf_report.py``) attributes a run's bytes and
 launches kernel by kernel (``obs/roofline.py``), on the card unless
 given ``--cpu``; ``dashboard`` (``obs/dashboard_verb.py``) renders a
-bench history into HTML and markdown and runs no engine.
+bench history into HTML and markdown and runs no engine. ``analyze``
+(``analysis/runner.py``) is the static-analysis gate: the model checker
+(its oracle on the card unless given ``--cpu``), the trace lint, the
+protocol tables and the litmus suite.
 
-Not ported yet (ROADMAP.md, Queue 1): ``analyze``, the verb of the
-analysis modules; it exits 2 with a note. Nor ``--engine omp``, which
-builds the reference's own ``assignment.c``, not part of this
-repository.
+Not ported: ``--engine omp``, which builds the reference's own
+``assignment.c``, not part of this repository.
 """
 
 from __future__ import annotations
@@ -73,13 +74,10 @@ import sys
 
 import numpy as np
 
-#: the JAX CLI's verbs, which dispatch to modules the port does not have
-#: yet (ROADMAP.md, Queue 1 item 7)
-LATER_VERBS = ("analyze",)
-
 #: the serving verbs (JAX ``cli.py:634-655``) and the host verbs
-#: ``bench-diff``, ``replay``, ``perf-report`` and ``dashboard``
-#: (``:616-618``, ``:656-659``, ``:625-633``): verb -> (module, function)
+#: ``analyze``, ``bench-diff``, ``replay``, ``perf-report`` and
+#: ``dashboard`` (``:605-608``, ``:616-618``, ``:656-659``,
+#: ``:625-633``): verb -> (module, function)
 SERVING_VERBS = {
     "serve": ("serve", "main"), "soak": ("soak", "main"),
     "daemon": ("daemon.server", "main"), "submit": ("daemon.client", "main"),
@@ -87,7 +85,8 @@ SERVING_VERBS = {
     "bench-diff": ("obs.bench_diff", "main_bench_diff"),
     "replay": ("replay", "main"),
     "perf-report": ("obs.perf_report", "main_perfreport"),
-    "dashboard": ("obs.dashboard_verb", "main_dashboard")}
+    "dashboard": ("obs.dashboard_verb", "main_dashboard"),
+    "analyze": ("analysis.runner", "main")}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -807,10 +806,6 @@ def main(argv=None) -> int:
         mod, fn = SERVING_VERBS[raw[0]]
         return getattr(importlib.import_module(
             f"ue22cs343bb1_openmp_assignment_tpu_torch.{mod}"), fn)(raw[1:])
-    if raw[:1] and raw[0] in LATER_VERBS:
-        print(f"error: {raw[0]} is not ported yet; see ROADMAP.md",
-              file=sys.stderr)
-        return 2
     args = build_parser().parse_args(raw)
 
     from ue22cs343bb1_openmp_assignment_tpu_torch import device

@@ -31,6 +31,7 @@ from ue22cs343bb1_openmp_assignment_tpu_torch.utils import (
     checkpoint, golden, trace)
 
 
+# lint: host
 def dump_view(state: SimState):
     """The dump fields of ``state`` as numpy arrays, the sharer words as
     uint32 (``golden.state_to_dumps`` joins them into one integer)."""
@@ -106,6 +107,7 @@ class CoherenceSystem:
         return (dataclasses.replace(self, state=state),
                 {k: v.cpu().numpy() for k, v in ev.items()})
 
+    # lint: host
     def run_traced(self, max_cycles: int = 100_000, chunk: int = 64):
         """Run to quiescence collecting the event log in ``chunk``-cycle
         blocks: (system, events) with events a dict of [cycles, N] numpy

@@ -191,6 +191,7 @@ def hotspot(key, cfg: SystemConfig, trace_len: int, working_set: int = 2,
     return op, addr, val, _count(N, trace_len, dev)
 
 
+# lint: host
 def _xla_cpu_sum(x: np.ndarray) -> np.float32:
     """``jnp.sum`` of float32 ``x`` as XLA's CPU backend computes it:
     past 32 elements a reduce-window of 32 (padding split around the
@@ -205,6 +206,7 @@ def _xla_cpu_sum(x: np.ndarray) -> np.float32:
     return np.cumsum(x, dtype=np.float32)[-1]
 
 
+# lint: host
 def _xla_cpu_cumsum(x: np.ndarray) -> np.ndarray:
     """``jnp.cumsum`` of float32 ``x`` as XLA's CPU backend computes it:
     past 16 elements, rows of 16 (zero-padded at the end) are scanned in
@@ -221,6 +223,7 @@ def _xla_cpu_cumsum(x: np.ndarray) -> np.ndarray:
     return (local + before[:, None]).reshape(-1)[:n]
 
 
+# lint: host
 def zipf_cdf(cfg: SystemConfig, exponent: float = 1.2,
              hot_ranks: int = 64) -> np.ndarray:
     """The truncated Zipf law's float32 cdf over the ``hot_ranks`` most

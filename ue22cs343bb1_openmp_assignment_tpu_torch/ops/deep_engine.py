@@ -789,7 +789,7 @@ def _round_profile(cfg: SystemConfig, core, w_oa) -> dict:
     flat = (rows[None, :] * E
             + torch.clamp(w_oa & 0x0FFFFFFF, 0, E - 1).to(i64)).reshape(-1)
 
-    def plane(op):
+    def plane(op: int):
         p = torch.zeros(N * E, dtype=I32, device=dev)
         p.index_add_(0, flat, (ret & (opw == int(op))).reshape(-1).to(I32))
         return p.reshape(N, E)

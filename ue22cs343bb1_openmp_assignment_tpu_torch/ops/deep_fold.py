@@ -39,7 +39,7 @@ def wi(cond, a, b):
     return torch.where(cond, a, b).to(torch.int32)
 
 
-def _onehot(idx, n):
+def _onehot(idx, n: int):
     """[idx == i for i < n]: the per-entry masks of a vec of list
     indices, computed once and shared by every select/update on it."""
     return [idx == i for i in range(n)]

@@ -32,6 +32,7 @@ def stalled_count(cfg: SystemConfig, state: SimState,
     return stalled_mask(cfg, state, threshold).sum(dtype=torch.int32)
 
 
+# lint: host
 def stall_report(cfg: SystemConfig, state: SimState,
                  threshold: int = DEFAULT_THRESHOLD,
                  limit: int = 16) -> dict:

@@ -66,7 +66,7 @@ def message_phase(cfg: SystemConfig, state, mv: MsgView):
     cl_val = state.cache_val[rows, p_cidx]
     cl_state = state.cache_state[rows, p_cidx]
 
-    def m(ty) -> torch.Tensor:
+    def m(ty: int) -> torch.Tensor:
         return has & (t == int(ty))
 
     is_rr = m(Msg.READ_REQUEST)
@@ -250,3 +250,47 @@ def message_phase(cfg: SystemConfig, state, mv: MsgView):
         unblocked=wait_clear & state.waiting,
     )
     return updates, cand_parts, inv_scatter, stats
+
+
+# ---------------------------------------------------------------------------
+# Row-extraction registry for analysis/protocol_table.py.
+#
+# TRANSITION_ANCHORS names, per message type, the assignment.c line
+# ranges the vectorized handler above transcribes — the same anchors
+# each declarative table Row must cite, so verify_table's anchor pass
+# can prove the table and this module describe the same reference code
+# (a renamed/renumbered handler breaks the cross-check loudly instead
+# of silently drifting). QUIRKS is the machine-readable index of the
+# five behavioral quirks documented in the module docstring; table rows
+# reference them by id.
+# ---------------------------------------------------------------------------
+
+TRANSITION_ANCHORS = {
+    "READ_REQUEST": ("assignment.c:199-210", "assignment.c:211-236"),
+    "WRITE_REQUEST": ("assignment.c:407-421", "assignment.c:423-437",
+                      "assignment.c:440-457"),
+    "REPLY_RD": ("assignment.c:240-258",),
+    "REPLY_WR": ("assignment.c:461-470",),
+    "REPLY_ID": ("assignment.c:352-384",),
+    "INV": ("assignment.c:389-399",),
+    "UPGRADE": ("assignment.c:326-348",),
+    "WRITEBACK_INV": ("assignment.c:474-498",),
+    "WRITEBACK_INT": ("assignment.c:262-281", "assignment.c:262-286"),
+    "FLUSH": ("assignment.c:301-322", "assignment.c:310-322",
+              "assignment.c:322"),
+    "FLUSH_INVACK": ("assignment.c:510-535", "assignment.c:522-535",
+                     "assignment.c:535"),
+    "EVICT_SHARED": ("assignment.c:549-558", "assignment.c:559-565",
+                     "assignment.c:559-589", "assignment.c:566-589"),
+    "EVICT_MODIFIED": ("assignment.c:596-616",),
+}
+
+QUIRKS = {
+    1: "replies fill from the latched instruction value, not the message",
+    2: "FLUSH/FLUSH_INVACK clear waitingForReply unconditionally",
+    3: "WRITEBACK_INT dedups the home==requester double-send; "
+       "WRITEBACK_INV does not",
+    4: "read-miss-on-EM defers the directory update to the FLUSH; "
+       "write-miss updates it immediately",
+    5: "blind-by-index cache writes (no tag check)",
+}

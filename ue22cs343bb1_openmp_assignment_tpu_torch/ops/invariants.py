@@ -85,11 +85,12 @@ def quiescent_predicates(cfg: SystemConfig, state: SimState) -> dict:
     is_e = state.cache_state == int(CacheState.EXCLUSIVE)
     is_s = state.cache_state == int(CacheState.SHARED)
 
-    # owned-copy and copy counts per home block: scatter-adds
+    # owned-copy and copy counts per home block: out-of-place
+    # scatter-adds, which torch.func.vmap batches (the model checker)
     flat = (h * M + b).reshape(-1).to(torch.int64)
-    owners = torch.zeros(N * M, dtype=I32, device=dev).index_add_(
+    owners = torch.zeros(N * M, dtype=I32, device=dev).scatter_add(
         0, flat, (is_m | is_e).to(I32).reshape(-1)).reshape(N, M)
-    copies = torch.zeros(N * M, dtype=I32, device=dev).index_add_(
+    copies = torch.zeros(N * M, dtype=I32, device=dev).scatter_add(
         0, flat, valid.to(I32).reshape(-1)).reshape(N, M)
     mem_val = state.memory[h, b]
     return {

@@ -128,6 +128,7 @@ def check_operand(kernel: str, name: str, t, shape: tuple, device) -> None:
             f"{'' if t.is_contiguous() else ' (not contiguous)'}")
 
 
+# lint: host
 def build(jobs) -> dict:
     """Build the libraries of ``jobs`` ((Library, cfg) pairs) that are
     not cached yet, one nvcc process per library, all started together.

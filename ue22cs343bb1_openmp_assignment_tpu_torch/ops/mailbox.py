@@ -77,7 +77,7 @@ def dequeue(cfg: SystemConfig, state) -> tuple:
     ring is non-empty (``assignment.c:174-177``). Returns (MsgView,
     new_head, new_count)."""
     N = cfg.num_nodes
-    rows = torch.arange(N, device=state.mb_head.device)
+    rows = torch.arange(N, dtype=torch.int64, device=state.mb_head.device)
     has = state.mb_count > 0
     h = state.mb_head
     row = state.mb_pack[:, rows, torch.where(has, h, 0)]       # [P, N]

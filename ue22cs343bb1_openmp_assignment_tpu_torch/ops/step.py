@@ -572,6 +572,7 @@ def run_cycles_profile(cfg: SystemConfig, state: SimState, num_cycles: int,
     return state, prof
 
 
+# lint: host
 def run_chunked_to_quiescence(cfg: SystemConfig, state: SimState,
                               chunk: int = 32, max_cycles: int = 100_000,
                               message_phase=None,

@@ -185,8 +185,9 @@ def _fresh_dm(cfg: SystemConfig, memory: torch.Tensor) -> torch.Tensor:
     dm[:, DM_STATE] = int(DirState.U)
     dm[:, DM_ACT] = -4
     dm[:, DM_CLAIM] = INT32_MAX
-    rows = (torch.arange(N, device=dev)[:, None] * S
-            + torch.arange(M, device=dev)[None, :]).reshape(-1)
+    rows = (torch.arange(N, dtype=torch.int64, device=dev)[:, None] * S
+            + torch.arange(M, dtype=torch.int64,
+                           device=dev)[None, :]).reshape(-1)
     dm[rows, DM_MEM] = memory.reshape(N * M).to(torch.int32)
     return dm
 
@@ -261,6 +262,7 @@ def from_sim_state(cfg: SystemConfig, sim_state, seed: int = 0) -> SyncState:
         metrics=SyncMetrics.zeros(dev))
 
 
+# lint: host
 def to_sim_arrays(cfg: SystemConfig, st: SyncState):
     """(memory, dir_state, dir_bitvec) host arrays in the message-level
     engine's layout. The sharer bitvector is derived from cache tags —
@@ -280,6 +282,7 @@ def to_sim_arrays(cfg: SystemConfig, st: SyncState):
     return dm[:, :, DM_MEM], dm[:, :, DM_STATE], bv
 
 
+# lint: host
 def to_dump_view(cfg: SystemConfig, st: SyncState):
     """A SimState-shaped view for utils.golden.state_to_dumps."""
     import types as _t
@@ -291,6 +294,7 @@ def to_dump_view(cfg: SystemConfig, st: SyncState):
         cache_state=st.cache_state.cpu().numpy())
 
 
+# lint: host
 def _assert_round_budget(cfg: SystemConfig, start_round, n: int) -> None:
     """Entry round + requested rounds must stay inside the claim-key
     budget (claim keys count down from claim_max_rounds)."""
@@ -504,7 +508,7 @@ def burst_phase(cfg: SystemConfig, w_oa, w_val, w_live, ca, cv, cs):
     wh_n = torch.sum(w_wrhit[:, :H] & in_burst, dim=1, dtype=I32)
     # burst writes: the last write to a line wins; any write leaves it
     # MODIFIED
-    c_iota = torch.arange(C, device=ca.device)[None, :]
+    c_iota = torch.arange(C, dtype=torch.int64, device=ca.device)[None, :]
     for k in range(H):
         wmask = ((w_wrhit[:, k] & in_burst[:, k])[:, None]
                  & (w_ci[:, k:k + 1] == c_iota))
@@ -1218,6 +1222,7 @@ def run_rounds_traced(cfg: SystemConfig, st: SyncState, n: int):
                 for f in ("retired", "op", "addr", "value")}
 
 
+# lint: host
 def run_sync_to_quiescence(cfg: SystemConfig, st: SyncState,
                            chunk: int = 32, max_rounds: int = 100_000,
                            fold_impl: str = "kernel") -> SyncState:
@@ -1330,6 +1335,7 @@ def ensemble_round_step(cfg: SystemConfig, st: SyncState,
                                      fold_impl) for r in range(R)])
 
 
+# lint: host
 def run_ensemble_to_quiescence(cfg: SystemConfig, st: SyncState,
                                chunk: int = 32, max_rounds: int = 100_000,
                                fold_impl: str = "kernel") -> SyncState:

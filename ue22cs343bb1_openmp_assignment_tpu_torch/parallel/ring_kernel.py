@@ -94,6 +94,7 @@ def _check_shards(D: int) -> None:
                          f"{MAX_SHARDS}")
 
 
+# lint: host
 def _launch(lib, obs, ibs, s_first: int, s_count: int, lane_words: int,
             dev: torch.device) -> None:
     err = lib.ring_exchange(
@@ -131,6 +132,7 @@ def exchange(ob: torch.Tensor, impl: str = "kernel") -> torch.Tensor:
 exchange.launches = 0
 
 
+# lint: host
 def enable_peer_access(devices) -> None:
     """Let every card of ``devices`` store into every other's memory;
     raises if a pair cannot."""

@@ -68,7 +68,7 @@ def bucket_lanes(ctype, recv, prio, fields, *, N: int, D: int, L: int,
     fit = v_s & (rank < cap)
     truncated = (v_s & ~fit).sum(1, dtype=I32)
     # dropped rows go to the spare lane D of their shard (sliced off)
-    src = torch.arange(D, device=dev)[:, None].expand(D, F)
+    src = torch.arange(D, dtype=torch.int64, device=dev)[:, None].expand(D, F)
     tgt = (src, torch.where(fit, d_s, D).to(torch.int64),
            torch.where(fit, rank, 0).to(torch.int64))
 

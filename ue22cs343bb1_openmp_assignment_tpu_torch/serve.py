@@ -48,10 +48,12 @@ Padding waste: every wave reports ``padding_waste``, the fraction of the
 slot instruction budget (slots * slot_nodes * slot_trace_len) that is
 padding rather than real job instructions.
 
-Not ported yet (ROADMAP.md, Queue 1): ``devices > 1`` (the batch axis
-sharded over several cards, ``batch_shardings``; item 6) and non-MESI
-protocols (``protocol_phase`` through ``analysis/protocol_table.py``;
-item 7). Both raise a ValueError.
+Jobs of the table protocols (``moesi``, ``mesif``) step through the
+table-compiled message phase (``protocol_phase``), under the same vmap.
+
+Not ported yet (ROADMAP.md, Queue 1 item 6): ``devices > 1`` (the batch
+axis sharded over several cards, ``batch_shardings``); it raises a
+ValueError.
 """
 
 from __future__ import annotations
@@ -136,16 +138,23 @@ def slot_config(specs, slot_nodes: Optional[int] = None,
                               protocol=protocol)
 
 
+# one phase callable per protocol, built once (JAX ``serve.py:135``)
+_PHASE_CACHE: Dict[str, object] = {}
+
+
 def protocol_phase(protocol: str):
     """message_phase override for a protocol: None for MESI (the
-    handler core *is* MESI). The table-compiled phases of the other
-    protocols need ``analysis/protocol_table.py``, not ported yet."""
+    handler core *is* MESI); the table-compiled phase otherwise
+    (``analysis/protocol_table.table_message_phase``), which the waves
+    vmap like the handlers."""
     if protocol == "mesi":
         return None
-    raise ValueError(f"protocol {protocol!r}: only mesi jobs are served "
-                     f"by the port yet; the table-compiled phases of the "
-                     f"other protocols wait for analysis/protocol_table.py "
-                     f"(ROADMAP.md, Queue 1 item 7)")
+    if protocol not in _PHASE_CACHE:
+        from ue22cs343bb1_openmp_assignment_tpu_torch.analysis import (
+            protocol_table)
+        _PHASE_CACHE[protocol] = protocol_table.table_message_phase(
+            protocol_table.TABLES[protocol]())
+    return _PHASE_CACHE[protocol]
 
 
 # trace synthesis is deterministic in the spec, so repeated serve()
