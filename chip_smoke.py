@@ -223,6 +223,19 @@ Phases (each prints its own line; any failure exits non-zero):
    launches, busy ms, idle share); 16 jobs of ``serve.mixed_jobs`` at 16
    x 16 under moesi and under mesif served on the card, every job's
    digest equal to ANALYZE_REFERENCE, threefry launched.
+16. fuzz (slice 16; sizes in FUZZ), in a child process started just
+   before the history phase and running beside the history and report
+   phases' children and the analyze phase (all host-bound):
+   ``cache-sim-torch analyze --skip-model-check --skip-lint --fuzz 16
+   --seed 0 --json`` in that process on the card, clean (exit 0) and under
+   ``--mutation stale_owner_forward --repro-dir R --flight-dir F``
+   (exit 1): the ``fuzz`` blocks' sha256 and the sha256 of every file
+   under R and F equal to the JAX package's (FUZZ_REFERENCE, from
+   ``scripts/analyze_reference.py --fuzz``), no port kernel launched;
+   ``replay`` of the first repro and the first incident gives the JAX
+   verb's exit code and verdict line, and ``fixtures.replay`` of the
+   repro under the mutation reproduces it; the cycle rate of the async
+   runs and a cycle's device launches under a torch.profiler window.
 
 Each phase's seconds are printed after the last phase.
 ``python3 chip_smoke.py --serve-run 1024`` runs only the serving run,
@@ -4585,6 +4598,362 @@ def phase_analyze(card: str) -> None:
     say("analyze", f"analyze phase took {time.perf_counter() - t0:.1f} s")
 
 
+# -- fuzz (slice 16) --------------------------------------------------------
+
+#: the fuzz phase's runs: ``analyze --fuzz CASES --seed SEED``, clean and
+#: under MUTATION with --repro-dir/--flight-dir (the defaults of
+#: scripts/analyze_reference.py --fuzz); the finding cases whose async
+#: runs give the cycle rate and the cycles of the profiler window
+FUZZ = dict(cases=16, seed=0, mutation="stale_owner_forward",
+            rate_cases=4, profile_cycles=32, phase_timeout_s=600)
+
+#: from ``JAX_PLATFORMS=cpu python scripts/analyze_reference.py --fuzz``:
+#: sha256 of the JAX runner's ``fuzz`` block clean and under the
+#: mutation, the JAX replay verb's exit code and verdict line on the first
+#: shrunk repro and the first incident, and the sha256 of every file the
+#: mutation run wrote under --repro-dir (R) and --flight-dir (F)
+FUZZ_REFERENCE = {
+    "clean": (
+        "6978ec71a50b6edf6d70e82f3736f85c75cbb232236526d30ee1b8f9"
+        "32fe2b2e"),
+    "stale_owner_forward": (
+        "59a199749d0da2ed4135740e38d3a8273153766d4e696377b87b1384"
+        "031e76a3"),
+    "replay": {
+        "fixture": ("repro_0", 1,
+                    "replay: fixture verdict 'consistency' (expected "
+                    "'state') -> NOT reproduced"),
+        "incident": ("incident_0", 0,
+                     "replay: flight incident (reason 'fuzz:state') fresh "
+                     "verdict 'ok' -> REPRODUCED"),
+    },
+    "files": {
+        "F/incident_0/core_0.txt":
+            "db30c96aecc4f8e0f7deb9a45d6fc83d5466f4c14224097e8119d237ddb8a74c",
+        "F/incident_0/core_1.txt":
+            "76d5faf31eb8e96572e42187415ab0572cacf1f3091a396b61f304e450311901",
+        "F/incident_0/incident.json":
+            "5feeec28add860edb2d00471006ccfc2755d8170688e9b933c763a581c53e3c0",
+        "F/incident_0/repro.json":
+            "16f10ea87d40f8702ec9cfb405afc8a8db646d0e7c017b927855d6db2365fc26",
+        "F/incident_0/trace.perfetto.json":
+            "6f7605f007ef9f86dacc19216e3dc63db44f0c9f1e1e741348e2144fea3d110e",
+        "F/incident_1/core_0.txt":
+            "504442fa28488699e4af74f4cba846d6fbfe000201c57f51889e5c5e30a0f39a",
+        "F/incident_1/core_1.txt":
+            "76d5faf31eb8e96572e42187415ab0572cacf1f3091a396b61f304e450311901",
+        "F/incident_1/incident.json":
+            "39e789da846a2945088b4f349a6ca7a0d3d17776866b410cc36447f660a4f37a",
+        "F/incident_1/repro.json":
+            "b4a03857d1afda361e77ab1d592bec7de78f1a82ebc6b7755ddf551f49385b6b",
+        "F/incident_1/trace.perfetto.json":
+            "0cc0b091ab39f1ef8e7c222a3de751948eda472bd46c7daa3b5894b9fab992cd",
+        "F/incident_10/core_0.txt":
+            "febd2531706cf8631a024df5b4c216bcaa889cfb16e17ba0e01d2720430f705f",
+        "F/incident_10/core_1.txt":
+            "64173bb00d52637373f13cb5528a2e176d99d5f00845a2ab2d09f838d2d36d36",
+        "F/incident_10/incident.json":
+            "91bfd04302478460c5879967a36052037c307969a166d099adbe6e5b0c9329e7",
+        "F/incident_10/repro.json":
+            "0e0e8c122b4e3db658f067c26e82f4c4a06bcd71ed30d1b7d0e899e19d0fce9c",
+        "F/incident_10/trace.perfetto.json":
+            "108678dba571bb9354b67ebe36f1ce9ba72e8e6fc8a1177934e55fd6c93acbfd",
+        "F/incident_12/core_0.txt":
+            "b24168ab2c62343f120881a747e189164ab5db1eb1048f86ae662f4b941fc0b1",
+        "F/incident_12/core_1.txt":
+            "ddb776e3782cecb9dea1bbff79dc4e29f7dcab784a0f1dd4bbe10955a788f0d3",
+        "F/incident_12/core_2.txt":
+            "127f2c4816407a15a632314184edba5a93c8d84b9d3b989917701d04b485b57e",
+        "F/incident_12/core_3.txt":
+            "6a3a0c5564fca3f786892e48c951950972a82be25c88b566ce0634a9527157a2",
+        "F/incident_12/incident.json":
+            "8c7f9f25392427ac9b12dc1d7b3c52a48c7eb5ab655f31f0d9fe18efe593fda2",
+        "F/incident_12/repro.json":
+            "3dffea0e5ed364adfcce95e0719decb83af2df5e4d0271382891b9fe65133d82",
+        "F/incident_12/trace.perfetto.json":
+            "275d19e354cd78206d9a8231a634e9494dec3df8f822c06a554afc9b80432acf",
+        "F/incident_13/core_0.txt":
+            "a84c5c1f8af50489792053f434d217b12d1ea5b5475fa9631254de1466a67b64",
+        "F/incident_13/core_1.txt":
+            "a15b1c9306d982f18448c544148e76e4edb9e1dd83913d709ab1c24c01a70b48",
+        "F/incident_13/incident.json":
+            "d5209c94c42bed5bd464a3cfb59a777e879a0cdfe787be79e4fde1e1abffd839",
+        "F/incident_13/repro.json":
+            "a10a85903efba5d817ad22e64fabe88747daeeaffb80d90fa84fe0be59dfa221",
+        "F/incident_13/trace.perfetto.json":
+            "afef3ba80cf502ba4c2c12f02bc9fb1b81b85c407510f0781151a397af88e3c3",
+        "F/incident_2/core_0.txt":
+            "db30c96aecc4f8e0f7deb9a45d6fc83d5466f4c14224097e8119d237ddb8a74c",
+        "F/incident_2/core_1.txt":
+            "b3b9847dba5bcec2e9f263acdb89765e0d6381e1d204205b66cd3497ea18a76c",
+        "F/incident_2/incident.json":
+            "4611a2eb52872addc70d600a85d69e0faaeca7a93b1b745bc6068a607b80e5a1",
+        "F/incident_2/repro.json":
+            "b3039d3c23edde8b9a7ad77e2741f65bbd477a10c18b137f6ba08b1702305b40",
+        "F/incident_2/trace.perfetto.json":
+            "8bf883e06bc66ef7c4912b6845005aed19311c9beb40ca3e86ed5e67b73fe1f3",
+        "F/incident_3/core_0.txt":
+            "652ab1f23fd21e7b9cd1fd0e5079db834e0b5032a58846091869efbc97e1cc4d",
+        "F/incident_3/core_1.txt":
+            "1a45708254ee3d91696dd57b560d270ef4921b69449ef900d06a9b43446942f7",
+        "F/incident_3/incident.json":
+            "352fdf946b09dd72d42b32ae3a52474b0c77c9cd89165a04a15d6c0d7ba1dfc1",
+        "F/incident_3/repro.json":
+            "fb36f3ce24c4ae637042d40460b6a59012a826b617c2cfec554b77ab843600e8",
+        "F/incident_3/trace.perfetto.json":
+            "0607494829f1e84df3ecdb4ffc49ff3c2002a71c2c74749ffc1bac9b12bc006c",
+        "F/incident_4/core_0.txt":
+            "308d47f8536911466bd6ed34933f568a3aec221f62cd381749d573fc7d09578e",
+        "F/incident_4/core_1.txt":
+            "20d3070062691bcba42ba6bd0418cbd60055577c9119313681b8509e6df09e4f",
+        "F/incident_4/incident.json":
+            "893c5511d35cb21aadad3513f7a211007f304610a6efdd63bc52dc4c8d641677",
+        "F/incident_4/repro.json":
+            "68f08d25a5754c26bc2d096953e69f555c5bc966fed2187230d4e9de370b51c2",
+        "F/incident_4/trace.perfetto.json":
+            "aa638c7d24103d0b77b0bbeb7c44be7ab15a55e9f39427952d09d9e9448c54b7",
+        "F/incident_5/core_0.txt":
+            "2c20b7302ff6d43900efdef96c494c86cbf1f23408ce592dc07eeaca4c035c16",
+        "F/incident_5/core_1.txt":
+            "23c687c360fa39397dc8c930b2d103a0c5e8e343a05311d856636044bbdec92f",
+        "F/incident_5/incident.json":
+            "04ce037ae4ce8e9298f2a5d238fd045f677897884708997aca4abe8caa65a7fa",
+        "F/incident_5/repro.json":
+            "8c11bbcfffdcf6e9b1d2267f140a900d4d638dde02974ebc8b42848cb2c04ac1",
+        "F/incident_5/trace.perfetto.json":
+            "e6e7c19cb1e3c0fc7bb641457349372965843a9afd5c13ed04370a26a09c442d",
+        "F/incident_8/core_0.txt":
+            "554dbefa94beff34a627d0affc6d9f4683f5613e8b19c8905a14bbeac438dec3",
+        "F/incident_8/core_1.txt":
+            "b02be7df1e6e08c30d91835b83491dedd0ee44f6bbc9aa35777ea6ce03cebea4",
+        "F/incident_8/core_2.txt":
+            "a00a7eb719af718685d81190a078d9e3aaadf9f0731958b618c1a78ddf7d5bdc",
+        "F/incident_8/core_3.txt":
+            "96042548648ece46c431b053dd88ee9db6eaae7f8e1358c9850997ce634b1b43",
+        "F/incident_8/incident.json":
+            "f8dcbaf60fc09af444cfd71355bb7797a661ee08cb01adcb29e8875eb607dd7b",
+        "F/incident_8/repro.json":
+            "1af5aebd50dba670bd7f76a97403975a5a9ad99855429e60cfa1ed5e4b041570",
+        "F/incident_8/trace.perfetto.json":
+            "49b479527be41ffe653131eeb1a2b6b01b08a418cc3b1e002414660c6c9363ba",
+        "F/incident_9/core_0.txt":
+            "7c6c263304e74792a285c48ed1fb9fcf7f92b0822c2cb8c53e650704ee305411",
+        "F/incident_9/core_1.txt":
+            "1a45708254ee3d91696dd57b560d270ef4921b69449ef900d06a9b43446942f7",
+        "F/incident_9/incident.json":
+            "a9858b0a0a6b9be55fc955dace6928bb9f0ef76de13f1df1abc7fd8c490f5524",
+        "F/incident_9/repro.json":
+            "6e173f7bb4540024cfafb11dd5abc6016321a6e73ff1b8a89da1d75725412f4d",
+        "F/incident_9/trace.perfetto.json":
+            "b6af7699ecadccd0806dbfbf5504b8b12e7e71a6839197522a8cd51a38e4ed88",
+        "R/repro_0/core_0.txt":
+            "308d47f8536911466bd6ed34933f568a3aec221f62cd381749d573fc7d09578e",
+        "R/repro_0/core_1.txt":
+            "21db6eba715d1fa8768280aef51db7f85b915d903a555303c91d60d13e0f38e8",
+        "R/repro_0/repro.json":
+            "7dc11dcbae1f688c0fe9e63e45be8cde41ca097d8e19b8d47b27307d4eb35433",
+        "R/repro_0/trace.perfetto.json":
+            "2927c91ac93ee80c9ca99d7ad57ee6c28692b1e2f0f0f7231fa8a08b1e67c4ae",
+        "R/repro_1/core_0.txt":
+            "b0e00016c1cce8b422b6d58f8e56ac09612d61e765a8b742ee8ae91292791aa8",
+        "R/repro_1/core_1.txt":
+            "826cd1fbd600df449eb5294616149dced3e1ea1dd79890ca5ac1dd396755ec6d",
+        "R/repro_1/repro.json":
+            "9bb2d425b0f8446f2468c41867b3ff1c98c0e64aa94bfb36ec567ab50c3621b2",
+        "R/repro_1/trace.perfetto.json":
+            "dff4e06833b1d6581fb30810627e149e0c35a7443d87b9e89284ea8ec8758a15",
+    },
+}
+
+
+def _tree_digests(root, prefix: str) -> dict:
+    """{prefix/relative path: sha256} of every file under ``root``."""
+    import hashlib
+    import pathlib
+    root = pathlib.Path(root)
+    return {f"{prefix}/{p.relative_to(root)}":
+            hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in sorted(root.rglob("*")) if p.is_file()}
+
+
+def _fuzz_rates(card: str, cases: list) -> None:
+    """Cycles a second of the async runs to quiescence of ``cases`` on
+    the card (clean handlers, the host reading quiescence every cycle as
+    the fuzzer's runs do), and the device launches a cycle over a
+    torch.profiler window of the first case."""
+    cases = cases[:FUZZ["rate_cases"]]
+    import torch
+    from ue22cs343bb1_openmp_assignment_tpu_torch import bench
+    from ue22cs343bb1_openmp_assignment_tpu_torch.analysis import fuzz
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import step
+    cycles, secs = 0, 0.0
+    for case in cases:
+        st = fuzz.case_state(case)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fin = step.run_to_quiescence(case.config(), st, fuzz.MAX_CYCLES)
+        torch.cuda.synchronize()
+        secs += time.perf_counter() - t0
+        cycles += int(fin.cycle)
+    cfg = cases[0].config()
+    prof = bench.profile_steps(lambda s: step.cycle(cfg, s),
+                               fuzz.case_state(cases[0]),
+                               FUZZ["profile_cycles"])
+    say("fuzz", f"async runs of the {len(cases)} finding cases to "
+        f"quiescence: {cycles} cycles in {secs:.3f} s, "
+        f"{cycles / secs:.1f} cycles/s; one cycle of a "
+        f"{cfg.num_nodes}-node case: "
+        f"{prof['device_launches_per_round']:.1f} device launches, "
+        f"{prof['wall_ms_per_round']:.3f} ms wall under the profiler, "
+        f"device busy {prof['device_busy_ms_per_round']:.4f} ms, idle "
+        f"share {prof['device_idle_share']:.3f}; {card}")
+
+
+def start_fuzz(card: str):
+    """Start the fuzz phase in a fresh interpreter (``fuzz_main``), its
+    output into a temporary log: the phase is host-bound (~10 ms of
+    Python a cycle, the card idle 96 % of it), so it runs beside other
+    phases, and a fresh process keeps it off the slowdown this
+    long-lived one shows late (section 7 of PERF.md)."""
+    import os
+    import tempfile
+    fd, log_path = tempfile.mkstemp(prefix="chip_smoke_fuzz", suffix=".log")
+    log = os.fdopen(fd, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "sys.exit(chip_smoke.fuzz_main(sys.argv[1]))", card],
+        cwd=os.path.dirname(os.path.abspath(__file__)), stdout=log,
+        stderr=subprocess.STDOUT, start_new_session=True)
+    log.close()
+    return proc, log_path, time.perf_counter()
+
+
+def finish_fuzz(started) -> None:
+    """Wait for the fuzz child (killing it, and its children, at the
+    timeout), print its output here, and fail if it failed."""
+    proc, log_path, t0 = started
+    try:
+        rc = proc.wait(timeout=max(1.0, FUZZ["phase_timeout_s"]
+                                   - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        raise SmokeFailure(f"fuzz phase timed out after "
+                           f"{FUZZ['phase_timeout_s']:.0f} s")
+    finally:
+        with open(log_path) as f:
+            print(f.read(), end="", flush=True)
+        stop_fuzz(started)
+    if rc != 0:
+        raise SmokeFailure(f"fuzz phase exited {rc}")
+    say("fuzz", f"fuzz child done {time.perf_counter() - t0:.1f} s after "
+        "its start")
+
+
+def stop_fuzz(started) -> None:
+    """Kill the fuzz child and its process group if it still runs, and
+    remove its log."""
+    import os
+    import signal
+    proc, log_path, _ = started
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+    if os.path.exists(log_path):
+        os.unlink(log_path)
+
+
+def phase_fuzz(card: str) -> None:
+    """The fuzz phase alone (``fuzz_main`` in a child process)."""
+    finish_fuzz(start_fuzz(card))
+
+
+def fuzz_main(card: str) -> int:
+    """The fuzz phase's work; prints FAIL and exits 1 on a failure."""
+    try:
+        _fuzz_work(card)
+    except (SmokeFailure, AssertionError, RuntimeError, ValueError,
+            KeyError) as e:
+        print(f"FAIL: fuzz: {type(e).__name__}: {e}", flush=True)
+        return 1
+    return 0
+
+
+def _fuzz_work(card: str) -> None:
+    """``cache-sim-torch analyze --fuzz 16 --seed 0`` on the card, clean
+    and under stale_owner_forward with --repro-dir and --flight-dir: the
+    exit codes, the ``fuzz`` blocks and every file written equal to the
+    JAX package's (FUZZ_REFERENCE), no port kernel launched; the replay
+    verb on the first repro and incident gives the JAX verb's exit code
+    and verdict line, and the repro replays its verdict under the
+    mutation in process; the async runs' cycle rate and a cycle's
+    launches."""
+    import os
+    import tempfile
+    from ue22cs343bb1_openmp_assignment_tpu_torch import bench
+    from ue22cs343bb1_openmp_assignment_tpu_torch.analysis import (
+        fixtures, fuzz, mutations, runner)
+    F, ref, mut = FUZZ, FUZZ_REFERENCE, FUZZ["mutation"]
+    t0 = time.perf_counter()
+    argv = ["--skip-model-check", "--skip-lint", "--fuzz", str(F["cases"]),
+            "--seed", str(F["seed"])]
+    with tempfile.TemporaryDirectory() as tmp:
+        bench.reset_launch_counts()
+        rc, doc, took = _analyze_json(tmp, "fuzz", argv)
+        _check_launches("fuzz clean", bench.launch_counts(), {})
+        if rc != 0 or runner.block_digests(doc)["fuzz"] != ref["clean"]:
+            raise SmokeFailure(f"analyze --fuzz {F['cases']}: exit {rc}, "
+                               "or the fuzz block differs from the JAX "
+                               "package's")
+        p = doc["prongs"]["fuzz"]
+        say("fuzz", f"analyze --fuzz {F['cases']} --seed {F['seed']} on "
+            f"the card: exit 0, verdicts {doc['fuzz']['verdicts']}, the "
+            f"fuzz block equal to the JAX package's; {took:.2f} s wall, "
+            f"{p['cases'] / p['seconds']:.2f} cases/s, {p['cycles']} "
+            f"async cycles; {card}")
+        r, f = os.path.join(tmp, "R"), os.path.join(tmp, "F")
+        bench.reset_launch_counts()
+        rc, doc, took = _analyze_json(tmp, "fuzz-mutation", argv + [
+            "--mutation", mut, "--repro-dir", r, "--flight-dir", f])
+        _check_launches("fuzz mutation", bench.launch_counts(), {})
+        if rc != 1 or runner.block_digests(doc)["fuzz"] != ref[mut]:
+            raise SmokeFailure(f"analyze --fuzz --mutation {mut}: exit "
+                               f"{rc}, or the fuzz block differs from the "
+                               "JAX package's")
+        files = {**_tree_digests(r, "R"), **_tree_digests(f, "F")}
+        if files != ref["files"]:
+            bad = sorted(k for k in set(files) | set(ref["files"])
+                         if files.get(k) != ref["files"].get(k))
+            raise SmokeFailure(f"fuzz {mut}: {len(bad)} file(s) differ "
+                               f"from the JAX package's: {bad[:4]}")
+        say("fuzz", f"--mutation {mut} --repro-dir --flight-dir: exit 1, "
+            f"verdicts {doc['fuzz']['verdicts']}, shrunk "
+            + ", ".join(f"{s['instrs_before']}->{s['instrs_after']} in "
+                        f"{s['runs']} runs" for s in doc["fuzz"]["shrunk"])
+            + f"; the fuzz block and all {len(files)} files equal to the "
+            f"JAX package's; {took:.2f} s wall; {card}")
+        for kind, (d, want_rc, want_line) in ref["replay"].items():
+            path = os.path.join(r if kind == "fixture" else f, d)
+            rc, out, _, wall, counts = run_cli(["replay", path])
+            _check_launches(f"replay {kind}", counts, {})
+            line = out.splitlines()[-1] if out else ""
+            if (rc, line) != (want_rc, want_line):
+                raise SmokeFailure(f"replay {d}: exit {rc}, {line!r}; the "
+                                   f"JAX verb: exit {want_rc}, "
+                                   f"{want_line!r}")
+            say("fuzz", f"replay {d} on the card: exit {rc}, as the JAX "
+                f"verb; {wall:.2f} s wall")
+        d = os.path.join(r, ref["replay"]["fixture"][0])
+        res = fixtures.replay(d, mutations.MUTATIONS[mut][0])
+        if not res["reproduced"]:
+            raise SmokeFailure(f"fixtures.replay {d} under {mut}: verdict "
+                               f"{res['verdict']}, want "
+                               f"{res['expected_verdict']}")
+        say("fuzz", f"fixtures.replay of {os.path.basename(d)} under {mut} "
+            f"on the card: {res['verdict']}, reproduced")
+        _fuzz_rates(card, [fuzz.case_from_dict(x["case"])
+                           for x in doc["fuzz"]["findings"]])
+    say("fuzz", f"fuzz phase took {time.perf_counter() - t0:.1f} s; {card}")
+
+
 def phase_multi_card() -> None:
     import torch
     from ue22cs343bb1_openmp_assignment_tpu_torch.parallel import ring_kernel
@@ -4718,9 +5087,17 @@ def main(argv=None) -> int:
         timed("cli", phase_cli, card)
         timed("obs", phase_obs, card)
         timed("serve", phase_serve, card)
-        timed("history", phase_history, card)
-        timed("report", phase_report, card)
-        timed("analyze", phase_analyze, card)
+        # the fuzz phase's child runs beside the history and report
+        # children (this process only waits for them) and the analyze
+        # phase
+        fuzz_run = start_fuzz(card)
+        try:
+            timed("history", phase_history, card)
+            timed("report", phase_report, card)
+            timed("analyze", phase_analyze, card)
+            timed("fuzz (rest)", finish_fuzz, fuzz_run)
+        finally:
+            stop_fuzz(fuzz_run)
         say("time", ", ".join(f"{k} {v:.1f} s" for k, v in times.items()))
     except (SmokeFailure, AssertionError, RuntimeError, ValueError) as e:
         print(f"FAIL: {type(e).__name__}: {e}", flush=True)

@@ -337,7 +337,8 @@ def test_runner_usage_error_exits_2(capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ("--fuzz", "4"), ("--jaxpr",), ("--kernel",), ("--index",),
+    ("--mutation", "narrow_ladder_gap"), ("--jaxpr",), ("--kernel",),
+    ("--index",),
     ("--mutation", "widen_min_chunk"), ("--mutation", "split_packed_scatter"),
 ])
 def test_runner_waiting_prongs_exit_2(capsys, argv):

@@ -7,11 +7,14 @@ package's for the same arrivals; each package replays the other's
 recording in process with every dump digest matching, and the two replay
 documents, stdout and latency entries are equal. ``detect`` names every
 artifact as JAX's does. A soak incident replays, ``--slo`` exits 4 and a
-tampered digest exits 1; the kinds and the flag of a later slice
-(flight incidents, repro fixtures, ``--shrink``) exit 2.
+tampered digest exits 1; a hang incident without a repro, ``--shrink``
+without ``--slo`` and garbage exit 2 as in JAX. (Fixtures, fuzz
+incidents and ``--shrink`` against JAX: tests/test_torch_fuzz.py.)
 """
 
 import json
+
+import pytest
 
 from ue22cs343bb1_openmp_assignment_tpu import replay as jreplay
 from ue22cs343bb1_openmp_assignment_tpu import soak as jsoak
@@ -92,21 +95,28 @@ def test_detect_matrix_equals_jax(tmp_path):
 
 
 def test_later_kinds_and_shrink_exit_2(tmp_path, capsys):
-    """Flight incidents, repro fixtures and ``--shrink`` belong to a later
-    slice: each exits 2 with a note naming ROADMAP.md, before any run."""
-    for name, doc, fname in (
-            ("flight_inc", {"schema": "cache-sim/incident/v1"},
-             "incident.json"),
-            ("fix", {"schema": "cache-sim/repro/v1"}, "repro.json")):
-        (tmp_path / name).mkdir()
-        (tmp_path / name / fname).write_text(json.dumps(doc))
-        assert port_cli.main(["replay", str(tmp_path / name), "--cpu"]) == 2
-        err = capsys.readouterr().err
-        assert "ROADMAP.md, Queue 1 items 4.4 and 7" in err
-    assert replay.main([str(tmp_path / "fix"), "--shrink", "--slo",
-                        "p95=1"]) == 2
-    assert "--shrink" in capsys.readouterr().err
+    """Where the JAX verb exits 2, so does the port's: a ``--flight-dir``
+    hang incident from the CLI has no repro.json (nothing to re-execute),
+    ``--shrink`` without ``--slo`` is a usage error, and garbage is not a
+    replayable artifact."""
+    port_cli.main(["--workload", "uniform", "--nodes", "4", "--trace-len",
+                   "8", "--cpu", "--max-cycles", "6", "--flight-dir",
+                   str(tmp_path / "fl")])
+    assert "incident dumped" in capsys.readouterr().err
+    inc = tmp_path / "fl" / "incident_hang"
+    assert replay.detect(inc) == "flight-incident"
+    assert port_cli.main(["replay", str(inc), "--cpu"]) == 2
+    out = capsys.readouterr().out
+    assert "has no repro.json" in out
+    assert jreplay.main([str(inc)]) == 2
+    assert capsys.readouterr().out == out
+    for mod in (replay, jreplay):
+        with pytest.raises(SystemExit) as e:
+            mod.main([str(inc), "--shrink"])
+        assert e.value.code == 2
+        assert "--shrink needs --slo" in capsys.readouterr().err
     assert replay.main([str(tmp_path / "garbage")]) == 2
+    assert jreplay.main([str(tmp_path / "garbage")]) == 2
 
 
 def _normalized(out: str, *paths) -> str:

@@ -1,4 +1,4 @@
-"""The analysis gate's protocol half, ported from the JAX package.
+"""The analysis gate, ported from the JAX package: its protocol half
 
 * :mod:`.model_check`: the small-scope explicit-state model checker,
   with ``ops/step.cycle`` under ``torch.func.vmap`` as its transition
@@ -11,10 +11,22 @@
   model checker;
 * :mod:`.lint_trace`: the AST linter of the port's device code;
 * :mod:`.mutations`: the seeded bugs every gate must catch;
-  :mod:`.runner`: the ``analyze`` verb.
+  :mod:`.runner`: the ``analyze`` verb;
 
-The fuzzer, the shrinker and the jaxpr walkers of the JAX package's
-``analysis/`` are not ported yet (ROADMAP.md, Queue 1).
+and its fuzzing half:
+
+* :mod:`.fuzz`: the coverage-guided differential fuzzer (async engine on
+  the card unless ``device="cpu"``, the native C++ oracle on the host,
+  the sync engine on node-local cases), the counterpart of the JAX
+  package's ``analysis/fuzz.py``;
+* :mod:`.axioms`: the po/rf/co/fr checker over a run's message ledger;
+* :mod:`.shrink`: ddmin of a finding (instructions) or of a recording
+  (jobs), the counterpart of the JAX package's ``analysis/shrink.py``;
+* :mod:`.fixtures`: the ``cache-sim/repro/v1`` fixture format.
+
+The jaxpr walkers of the JAX package's ``analysis/`` (``lint_jaxpr``,
+``kernelcheck``, ``indexcheck``) are not ported yet (ROADMAP.md,
+Queue 1).
 """
 
 from ue22cs343bb1_openmp_assignment_tpu_torch.analysis.model_check import (  # noqa: F401

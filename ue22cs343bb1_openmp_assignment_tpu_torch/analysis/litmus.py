@@ -10,15 +10,20 @@ are sequentially consistent and the allowed sets below are the SC sets
 of the classic tests (Alglave, Maranget & Tautschnig, "Herding Cats",
 TOPLAS 2014 — see PAPERS.md).
 
-The port of the JAX package's ``analysis/litmus.py``: the DSL, the
-builtin suite, the concretization and the enumeration. The **model
-checker** (analysis/model_check.py, ``track_obs=True``) enumerates EVERY
-reachable outcome of a test's scope and the suite diffs that set against
-``allowed``, exact equality both ways: an unexpected outcome is a
-consistency violation, an unobserved one means the scope lost
-interleavings. The JAX module's fuzzer half (``to_fuzz_case``,
-``seed_cases``, ``check_run_outcome``) needs ``analysis/fuzz.py`` and
-``axioms.py`` and comes with them (ROADMAP.md, Queue 1 item 7).
+The port of the JAX package's ``analysis/litmus.py``. Three consumers
+share one compilation path:
+
+* the **model checker** (analysis/model_check.py, ``track_obs=True``)
+  enumerates EVERY reachable outcome of a test's scope and the suite
+  diffs that set against ``allowed`` — exact equality, both directions:
+  an unexpected outcome is a consistency violation, an unobserved one
+  means the scope lost interleavings;
+* the **fuzzer** (analysis/fuzz.py) seeds the suite's traces into its
+  corpus at reference dimensions (:func:`seed_cases`) and checks every
+  run of a litmus-tagged case for membership in ``allowed``
+  (:func:`check_run_outcome`);
+* the **axiomatic checker** (analysis/axioms.py) replays any captured
+  run — litmus or fuzzed — against the po/rf/co/fr axioms.
 
 Symbolic conventions: addresses ``x`` = (home 0, block 1) and ``y`` =
 (home 1, block 0) — distinct homes, distinct direct-mapped cache slots,
@@ -340,3 +345,94 @@ def run_suite(tests=None, protocols=("mesi",), message_phase=None,
             if progress:
                 progress(proto, name, rep)
     return out
+
+
+# ---------------------------------------------------------------------------
+# fuzzer seeding: the suite as corpus cases at reference dimensions
+# ---------------------------------------------------------------------------
+
+#: corpus-seeding order: the discriminating shapes first, so a
+#: truncated seed budget (fuzz seeds ``n_cases // 2`` litmus cases)
+#: still carries the stale-copy detector and the classic MP/SB pair
+SEED_ORDER = ("mp_reload", "mp_upgrade", "mp", "sb", "corr", "cowr",
+              "corw", "lb", "2+2w", "iriw", "coww")
+
+
+def to_fuzz_case(test: LitmusTest, case_id: int):
+    """The test as a litmus-tagged FuzzCase at reference dimensions
+    (same symbolic concretization — the init-value formula is
+    dimension-independent, so the allowed set carries over)."""
+    from ue22cs343bb1_openmp_assignment_tpu_torch.analysis import fuzz
+    n = test.num_nodes
+    cfg = SystemConfig.reference(num_nodes=n)
+    conc = concretize(test, cfg)
+    local = all(codec.home_node(cfg, ins[1]) == node
+                for node, tr in enumerate(conc["traces"])
+                for ins in tr)
+    return fuzz.FuzzCase(
+        case_id=case_id, num_nodes=n, traces=conc["traces"],
+        delays=(0,) * n, periods=(1,) * n, rank=tuple(range(n)),
+        local=local, litmus=test.name)
+
+
+def seed_cases(max_n: int) -> tuple:
+    """The first ``max_n`` builtin tests in SEED_ORDER as fuzz corpus
+    seeds (case ids 0..max_n-1)."""
+    return tuple(to_fuzz_case(BUILTIN[name], i)
+                 for i, name in enumerate(SEED_ORDER[:max_n]))
+
+
+def check_run_outcome(test: LitmusTest, cfg: SystemConfig, events,
+                      final_state) -> dict | None:
+    """Membership check for ONE concrete run of a litmus-tagged case:
+    assemble the run's outcome tuple from the axiomatic checker's
+    extracted events (reads node-major in program order) plus the
+    final values of final_addrs, and test it against ``allowed``.
+    Returns a finding dict on a forbidden outcome, else None. Runs
+    with an unattributed (obs -1, early-unblock quirk) or ghost
+    (obs 0, blind-WRITEBACK race — module docstring) read are
+    skipped — the outcome tuple is not well defined there."""
+    import numpy as np
+    conc = concretize(test, cfg)
+    reads = [e["obs"]
+             for e in sorted(events, key=lambda e: (e["node"], e["idx"]))
+             if e["kind"] == "R"]
+    if any(v <= 0 for v in reads):
+        return None
+    from ue22cs343bb1_openmp_assignment_tpu_torch.convert import (
+        sim_numpy_leaves)
+    leaves = sim_numpy_leaves(final_state)     # dir_bitvec as uint32
+    dir_state = leaves["dir_state"]
+    dir_bv = leaves["dir_bitvec"]
+    cache_addr = leaves["cache_addr"]
+    cache_val = leaves["cache_val"]
+    cache_state = leaves["cache_state"]
+    memory = leaves["memory"]
+    from ue22cs343bb1_openmp_assignment_tpu_torch.types import CacheState, \
+        DirState
+
+    def final_value(addr):
+        h = codec.home_node(cfg, addr)
+        b = codec.block_index(cfg, addr)
+        if int(dir_state[h, b]) == int(DirState.EM):
+            cidx = codec.cache_index(cfg, addr)
+            for nn in range(cfg.num_nodes):
+                if ((int(dir_bv[h, b, nn // 32]) >> (nn % 32)) & 1
+                        and int(cache_addr[nn, cidx]) == addr
+                        and int(cache_state[nn, cidx])
+                        != int(CacheState.INVALID)):
+                    return int(cache_val[nn, cidx])
+        return int(memory[h, b])
+
+    outcome = tuple(reads) + tuple(final_value(a)
+                                   for a in conc["final_addrs"])
+    if outcome in conc["allowed"]:
+        return None
+    return {
+        "check": "litmus_outcome",
+        "test": test.name,
+        "outcome": list(outcome),
+        "allowed": sorted(map(list, conc["allowed"])),
+        "detail": f"litmus {test.name}: forbidden outcome "
+                  f"{outcome} (allowed: {sorted(conc['allowed'])})",
+    }

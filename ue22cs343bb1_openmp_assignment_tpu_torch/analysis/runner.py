@@ -1,24 +1,24 @@
 """`cache-sim-torch analyze`: the static-analysis gate (host-side CLI).
 
 The port of the JAX package's ``analysis/runner.py``: the same parser,
-exit codes and report, plus ``--cpu``. Runs the protocol prongs: the
-symmetry-reduced model checker over the builtin small scopes (default),
-the AST trace lint of the port's device code (default), the declarative
-table prong behind ``--table`` (verify_table over the MESI/MOESI/MESIF
-tables, then table-vs-handlers conformance) and the memory-consistency
-litmus matrix behind ``--litmus``. The model checker's oracle runs on the
-card unless ``--cpu``; with no card and no ``--cpu`` the verb exits 1
-and runs nothing on the CPU. Prints a human report that keeps
+exit codes and report, plus ``--cpu``. Runs the symmetry-reduced model
+checker over the builtin small scopes (default), the AST trace lint of
+the port's device code (default), the declarative table prong behind
+``--table`` (verify_table over the MESI/MOESI/MESIF tables, then
+table-vs-handlers conformance), the memory-consistency litmus matrix
+behind ``--litmus`` and the coverage-guided differential fuzzer behind
+``--fuzz N`` (analysis/fuzz.py; findings ddmin-shrunk by
+analysis/shrink.py into ``--repro-dir``, flight incidents into
+``--flight-dir``). The engines run on the card unless ``--cpu``; with
+no card and no ``--cpu`` the verb exits 1 and runs nothing on the CPU. Prints a human report that keeps
 reference-sanctioned quirks (`~`) visually distinct from genuine
 violations (`!`), optionally writes the full JSON report (the JAX
 runner's blocks, plus ``prongs``: each prong's wall seconds and oracle
 batches), and exits by the code table in ``--help``.
 
-Not ported yet (ROADMAP.md, Queue 1): the fuzzer (``--fuzz``, with
-``--seed``, ``--repro-dir`` and ``--flight-dir``), the jaxpr lint and
-recompilation guard (``--jaxpr``), the kernel-contract prong
-(``--kernel``), the index-pressure prong (``--index``) and their
-mutations. Each exits 2 with a note. ``python -m
+Not ported yet (ROADMAP.md, Queue 1): the jaxpr lint and recompilation
+guard (``--jaxpr``), the kernel-contract prong (``--kernel``), the
+index-pressure prong (``--index``) and their mutations. Each exits 2 with a note. ``python -m
 ue22cs343bb1_openmp_assignment_tpu_torch.analysis`` is the same command.
 """
 
@@ -166,16 +166,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-q", "--quiet", action="store_true",
                    help="only the verdict line")
     p.add_argument("--cpu", action="store_true",
-                   help="run the model checker's oracle on the CPU "
-                        "(default: the card; without one, --cpu is "
-                        "required)")
+                   help="run the model checker's oracle and the "
+                        "fuzzer's engines on the CPU (default: the "
+                        "card; without one, --cpu is required)")
     return p
 
 
 #: the JAX runner's prongs this port does not have yet: flag -> note
 LATER_PRONGS = {
-    "--fuzz": "the differential fuzzer (analysis/fuzz.py, shrink.py; "
-              "with --seed, --repro-dir and --flight-dir)",
     "--jaxpr": "the jaxpr lint and recompilation guard (lint_jaxpr.py)",
     "--kernel": "the kernel-contract prong (kernelcheck.py)",
     "--index": "the index-pressure prong (indexcheck.py)",
@@ -185,17 +183,24 @@ LATER_PRONGS = {
 #: byte under sort_keys (``lint`` reads another package's code)
 DIGEST_BLOCKS = ("model_check", "table", "litmus")
 
+#: further blocks computed as the JAX runner does, digested when the
+#: report has them (the prong ran)
+OPTIONAL_DIGEST_BLOCKS = ("fuzz",)
+
 
 def block_digests(report: dict) -> dict:
     """{block: sha256 of ``json.dumps(report[block], sort_keys=True)``}
-    over DIGEST_BLOCKS: what ``chip_smoke.py``'s ANALYZE_REFERENCE pins
-    (``scripts/analyze_reference.py`` computes it from the JAX runner).
-    The report is taken through JSON first, so an in-memory report and
-    its ``--json`` file give the same digests."""
+    over DIGEST_BLOCKS, and over OPTIONAL_DIGEST_BLOCKS where the report
+    has them: what ``chip_smoke.py``'s ANALYZE_REFERENCE and
+    FUZZ_REFERENCE pin (``scripts/analyze_reference.py`` computes them
+    from the JAX runner). The report is taken through JSON first, so an
+    in-memory report and its ``--json`` file give the same digests."""
     doc = json.loads(json.dumps(report))
+    blocks = DIGEST_BLOCKS + tuple(b for b in OPTIONAL_DIGEST_BLOCKS
+                                   if doc.get(b) is not None)
     return {b: hashlib.sha256(json.dumps(doc[b], sort_keys=True)
                               .encode()).hexdigest()
-            for b in DIGEST_BLOCKS}
+            for b in blocks}
 
 
 def _print(quiet: bool, *a) -> None:
@@ -204,8 +209,8 @@ def _print(quiet: bool, *a) -> None:
 
 
 def _later(msg: str) -> int:
-    print(f"error: {msg} is not ported yet; see ROADMAP.md (Queue 1 "
-          "item 7)", file=sys.stderr)
+    print(f"error: {msg} is not ported yet; see ROADMAP.md (Queue 1)",
+          file=sys.stderr)
     return 2
 
 
@@ -456,6 +461,47 @@ def run_table(scope_names, mutation, max_states, quiet, device=None,
     return out
 
 
+def run_fuzz(n_cases, seed, mutation, repro_dir, quiet, flight_dir=None,
+             device=None, tally=None) -> dict:
+    """The fuzz prong: ``n_cases`` cases of the coverage-guided loop on
+    ``device``, the first two findings ddmin-shrunk (repros under
+    ``repro_dir``). ``tally`` gets the cases run and their async
+    cycles."""
+    from ue22cs343bb1_openmp_assignment_tpu_torch.analysis import fuzz as fz
+    from ue22cs343bb1_openmp_assignment_tpu_torch.analysis import (
+        shrink as sh)
+    mp = _resolve_mutation(mutation)[0]
+
+    def progress(i, case, res):
+        if tally is not None:
+            tally["cases"] = tally.get("cases", 0) + 1
+            tally["cycles"] = tally.get("cycles", 0) + res["cycles"]
+
+    rep = fz.fuzz(n_cases, seed=seed, message_phase=mp, progress=progress,
+                  flight_dir=flight_dir, device=device)
+    _print(quiet,
+           f"== fuzz: {'ok' if rep['ok'] else 'FAIL'} "
+           f"[{n_cases} cases, seed {seed}, "
+           f"{rep['coverage_points']} coverage points, "
+           f"verdicts {rep['verdicts']}, "
+           f"{rep['quirk_cases']} quirk-only cases]")
+    if rep["findings"]:
+        shrunk = sh.shrink_findings(rep, out_root=repro_dir,
+                                    message_phase=mp, limit=2,
+                                    device=device)
+        rep["shrunk"] = shrunk
+        for s in shrunk:
+            _print(quiet,
+                   f"  ! case {s['case_id']}: {s['verdict']} — "
+                   f"{s['detail']}; shrunk {s['instrs_before']} -> "
+                   f"{s['instrs_after']} instrs ({s['runs']} runs)")
+        if repro_dir:
+            _print(quiet, f"   repros written under {repro_dir}")
+        if flight_dir:
+            _print(quiet, f"   flight-recorder incidents under "
+                          f"{flight_dir}")
+    return rep
+
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
@@ -473,8 +519,8 @@ def main(argv=None) -> int:
                       + "; ".join(f"{op} a={a} v={v}" for op, a, v in prog))
         return 0
 
-    for flag, on in (("--fuzz", args.fuzz > 0), ("--jaxpr", args.jaxpr),
-                     ("--kernel", args.kernel), ("--index", args.index)):
+    for flag, on in (("--jaxpr", args.jaxpr), ("--kernel", args.kernel),
+                     ("--index", args.index)):
         if on:
             return _later(f"{flag}, {LATER_PRONGS[flag]},")
     from ue22cs343bb1_openmp_assignment_tpu_torch.analysis import mutations
@@ -483,7 +529,8 @@ def main(argv=None) -> int:
                       "--index prongs,")
 
     device = None
-    if not args.skip_model_check or args.litmus or args.table:
+    if (not args.skip_model_check or args.litmus or args.table
+            or args.fuzz > 0):
         from ue22cs343bb1_openmp_assignment_tpu_torch import device as _dev
         try:
             device = _dev.resolve("cpu" if args.cpu else None)
@@ -497,17 +544,18 @@ def main(argv=None) -> int:
               "kernel": None, "index": None}
     prongs = {}
 
-    def prong(name, fn, *a):
-        """Run one prong, recording its wall seconds and oracle batches
-        (the card synchronised before the clock stops)."""
+    def prong(name, fn, *a, **kw):
+        """Run one prong, recording its wall seconds, oracle batches and
+        whatever else it tallies (the card synchronised before the clock
+        stops)."""
         tally = {"batches": 0}
         t0 = time.perf_counter()
-        out = fn(*a, device=device, tally=tally)
+        out = fn(*a, device=device, tally=tally, **kw)
         if device is not None and device.type == "cuda":
             import torch
             torch.cuda.synchronize(device)
         prongs[name] = {"seconds": time.perf_counter() - t0,
-                        "oracle_batches": tally["batches"]}
+                        "oracle_batches": tally.pop("batches"), **tally}
         return out
 
     ok, exhausted = True, False
@@ -546,6 +594,11 @@ def main(argv=None) -> int:
         prongs["lint"] = {"seconds": time.perf_counter() - t0,
                           "oracle_batches": 0}
         ok &= report["lint"]["ok"]
+    if args.fuzz > 0:
+        report["fuzz"] = prong("fuzz", run_fuzz, args.fuzz, args.seed,
+                               args.mutation, args.repro_dir, args.quiet,
+                               flight_dir=args.flight_dir)
+        ok &= report["fuzz"]["ok"]
     report["ok"] = bool(ok and not exhausted)
     report["prongs"] = prongs
     for name, p in prongs.items():

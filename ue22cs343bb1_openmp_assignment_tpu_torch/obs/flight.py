@@ -21,8 +21,12 @@ by hand. The flight recorder turns each of those into a self-contained
 - ``trace.perfetto.json`` — a validated Perfetto event trace of the
   run replayed from the initial state (the engine is deterministic, so
   the replay IS the incident);
-- (in the JAX package only, so far) ``core_<n>.txt`` + ``repro.json``
-  when the incident came from a fuzz case.
+- ``core_<n>.txt`` + ``repro.json`` — when the incident came from a
+  fuzz case, the exact ``cache-sim/repro/v1`` fixture format
+  analysis/shrink.py emits, so :func:`replay_incident` (and the
+  reference simulator itself) can re-run it. ``cache-sim replay
+  <dir>`` is the front door: it detects a flight incident among the
+  other captured artifact kinds and calls :func:`replay_incident`.
 
 The ring is captured by looping ``ops.step.run_cycles_telemetry`` in
 small chunks host-side and keeping only the last K samples — memory is
@@ -33,12 +37,11 @@ mutant engine, not the clean one.
 Host-side orchestration only; the per-cycle capture itself stays in
 ops/step.py.
 
-The port's copy of the JAX package's ``obs/flight.py``: ``FlightRecorder``,
-``dump_incident`` and ``load_incident``, with the captured tensors read
-to the host through ``convert.host`` (``.cpu()``). The fuzz-case half
-(``record_case``, ``replay_incident`` and ``dump_incident``'s ``case``
-argument, JAX ``obs/flight.py:211-272``) comes with the port of
-``analysis/fuzz.py`` (ROADMAP.md, Queue 1).
+The port's copy of the JAX package's ``obs/flight.py``, with the
+captured tensors read to the host through ``convert.host`` (``.cpu()``);
+:func:`record_case` and :func:`replay_incident` run on ``device`` (None:
+the card). Imports of analysis/* are lazy to keep obs free of an import
+cycle (analysis already imports obs).
 """
 # lint: host
 
@@ -140,9 +143,12 @@ class FlightRecorder:
 
     # lint: host
     def dump_incident(self, out_dir: str, reason: str,
-                      detail: str = "") -> dict:
+                      detail: str = "",
+                      case: Optional[dict] = None) -> dict:
         """Write the self-contained incident directory; returns the
-        incident doc."""
+        incident doc. ``case`` is a fuzz-case dict
+        (fuzz.FuzzCase.to_dict()) — when given, the repro fixture
+        (core_<n>.txt + repro.json) is emitted alongside."""
         from ue22cs343bb1_openmp_assignment_tpu_torch.obs import (perfetto,
                                                             timeseries)
         from ue22cs343bb1_openmp_assignment_tpu_torch.ops import step
@@ -162,6 +168,9 @@ class FlightRecorder:
             os.path.join(out_dir, "trace.perfetto.json"), trace_doc)
 
         files = ["incident.json", "trace.perfetto.json"]
+        if case is not None:
+            files += self._emit_case_repro(out_dir, reason, detail,
+                                           case)
 
         ring = self.ring()
         series = timeseries.to_series(ring) if ring else None
@@ -198,13 +207,39 @@ class FlightRecorder:
             "txn_summary": txn_summary,
             "profile": profile,
             "trace_cycles": n_trace,
-            "has_repro": False,
+            "has_repro": case is not None,
             "files": sorted(files),
         }
         with open(os.path.join(out_dir, "incident.json"), "w") as f:
             json.dump(doc, f, indent=1, sort_keys=True)
             f.write("\n")
         return doc
+
+    # lint: host
+    def _emit_case_repro(self, out_dir: str, reason: str, detail: str,
+                         case: dict) -> list:
+        # exact analysis/fixtures format (core_<n>.txt in the reference
+        # trace syntax + cache-sim/repro/v1 metadata), so an incident
+        # replays through the same path as a shrunk finding
+        from ue22cs343bb1_openmp_assignment_tpu_torch.analysis import (
+            fixtures, fuzz)
+        fc = fuzz.case_from_dict(case)
+        fixtures.write_fixture(out_dir, fc, reason.split(":", 1)[-1],
+                               detail,
+                               extra_files=["trace.perfetto.json"])
+        return [f"core_{n}.txt" for n in range(fc.num_nodes)] \
+            + ["repro.json"]
+
+
+# lint: host
+def record_case(case, message_phase: Optional[Callable] = None,
+                k: int = DEFAULT_RING, device=None) -> FlightRecorder:
+    """A FlightRecorder primed from a fuzz case's initial state on
+    ``device`` (None: the card): same construction as fuzz.run_case,
+    same mutant engine."""
+    from ue22cs343bb1_openmp_assignment_tpu_torch.analysis import fuzz
+    return FlightRecorder(case.config(), fuzz.case_state(case, device),
+                          k=k, message_phase=message_phase)
 
 
 # lint: host
@@ -225,3 +260,19 @@ def load_incident(incident_dir: str) -> dict:
         cohprof.validate(doc["profile"])
     return doc
 
+
+# lint: host
+def replay_incident(incident_dir: str,
+                    message_phase: Optional[Callable] = None,
+                    device=None) -> dict:
+    """Re-run an incident's repro case through the differential
+    oracle (analysis/fuzz.run_case) on ``device`` (None: the card);
+    returns the fresh verdict doc. Raises FileNotFoundError for
+    incidents without a repro (hang / invariant incidents from CLI runs
+    carry a Perfetto trace but no fuzz case)."""
+    from ue22cs343bb1_openmp_assignment_tpu_torch.analysis import fuzz
+    path = os.path.join(incident_dir, "repro.json")
+    with open(path) as f:
+        meta = json.load(f)
+    case = fuzz.case_from_dict(meta["case"])
+    return fuzz.run_case(case, message_phase, device)

@@ -24,18 +24,17 @@ One command, four artifact kinds, auto-detected (:func:`detect`):
 
 ``--slo`` puts a latency bound on a recording replay: a breach exits
 4 (soak.EXIT_SLO_BREACH) and dumps an incident dir that embeds the
-breach-window recording slice.
+breach-window recording slice — and ``--shrink`` then ddmins the JOB
+LIST (jobs are the atoms, not instructions) down to a minimal subset
+that still breaches, written back as a replayable incident fixture.
 
-The port of the JAX package's ``replay.py``, its first half: the
-recording and soak-incident kinds (``replay_recording``,
-``_replay_in_proc``, ``latency_entries``, ``write_latency_entries`` and
-``main`` for them). The in-process replay runs the daemon core's waves
-on the card unless given ``device="cpu"`` (``--cpu``); each job's trace
-is drawn through the threefry kernel there. :func:`detect` names all
-four kinds as JAX's does, but replaying a flight incident or a repro
-fixture, and ``--shrink``, need the flight recorder's fuzz-case half and
-the analysis package (ROADMAP.md, Queue 1 items 4.4 and 7): they exit 2
-with a note.
+The port of the JAX package's ``replay.py``. Every in-process run goes
+on the card unless given ``device="cpu"`` (``--cpu``): the daemon core's
+waves of a recording replay (each job's trace drawn through the threefry
+kernel there), the differential oracle of a fixture or a flight
+incident, and the shrink's replays. JAX's exit codes are kept as they
+are: a fixture replays under the clean handlers, and a flight
+incident's replay counts as reproduced whatever its fresh verdict.
 """
 # lint: host
 
@@ -52,15 +51,6 @@ from ue22cs343bb1_openmp_assignment_tpu_torch.obs import recording
 
 #: artifact kinds :func:`detect` can name
 KINDS = ("recording", "soak-incident", "flight-incident", "fixture")
-
-#: the schema id of a repro fixture (JAX ``analysis/fixtures.py:31``),
-#: which the port does not have yet
-FIXTURE_SCHEMA = "cache-sim/repro/v1"
-
-#: the artifact kinds whose replay is not ported yet, and the note
-LATER_KINDS = ("flight-incident", "fixture")
-LATER_NOTE = ("is not ported yet; see ROADMAP.md, Queue 1 items 4.4 "
-              "and 7")
 
 #: shared metric string stamped on both sides of a recorded-vs-
 #: replayed comparison — bench-diff refuses to compare across metrics
@@ -104,7 +94,9 @@ def detect(path) -> str:
             tried.append("file whose first line is not JSON")
         if schema == recording.SCHEMA_ID:
             return "recording"
-        if schema == FIXTURE_SCHEMA:
+        from ue22cs343bb1_openmp_assignment_tpu_torch.analysis import \
+            fixtures
+        if schema == fixtures.SCHEMA:
             return "fixture"
         if schema is not None:
             tried.append(f"file with unknown schema {schema!r}")
@@ -362,19 +354,26 @@ def main(argv=None) -> int:
     ap.add_argument("--shrink", action="store_true",
                     help="on an SLO breach, ddmin the recording's JOB "
                          "LIST to a minimal subset that still "
-                         "breaches (not ported yet: exits 2)")
+                         "breaches; writes a replayable incident "
+                         "fixture to --shrink-out")
+    ap.add_argument("--shrink-out", default="replay_shrunk",
+                    metavar="DIR",
+                    help="where --shrink writes the minimal "
+                         "recording + incident doc (default "
+                         "./replay_shrunk)")
     ap.add_argument("--cpu", action="store_true",
                     help="run the in-process replay on the CPU (the "
                          "plain PyTorch path) instead of the card")
     args = ap.parse_args(argv)
-    if args.shrink:
-        print(f"error: replay --shrink {LATER_NOTE}", file=sys.stderr)
-        return 2
     slo = soak_mod.parse_slo(args.slo) if args.slo else None
     burn = None
     if args.burn_slo:
         from ue22cs343bb1_openmp_assignment_tpu_torch.obs import burnrate
         burn = burnrate.monitor_from_spec(args.burn_slo)
+    if args.shrink and not slo:
+        ap.error("--shrink needs --slo: the shrink predicate is "
+                 "'this subset still breaches the SLO on replay'")
+
     try:
         kind = detect(args.artifact)
     except ValueError as e:
@@ -382,13 +381,9 @@ def main(argv=None) -> int:
         return 2
     print(f"replay: {args.artifact} -> {kind}")
 
-    if kind in LATER_KINDS:
-        print(f"error: replaying a {kind} {LATER_NOTE}", file=sys.stderr)
-        return 2
-
-    # recording, possibly embedded in a soak-incident dir
     dev = None
-    if not args.daemon:
+    if not args.daemon or args.shrink \
+            or kind in ("fixture", "flight-incident"):
         from ue22cs343bb1_openmp_assignment_tpu_torch import device
         try:
             dev = device.resolve("cpu" if args.cpu else None)
@@ -396,6 +391,12 @@ def main(argv=None) -> int:
             print("error: no CUDA device is available; pass --cpu to run "
                   "the plain PyTorch path on the CPU", file=sys.stderr)
             return 1
+    if kind == "fixture":
+        return _replay_fixture(args.artifact, args.json, dev)
+    if kind == "flight-incident":
+        return _replay_flight(args.artifact, args.json, dev)
+
+    # recording, possibly embedded in a soak-incident dir
     rec = recording.load(args.artifact)
     doc = replay_recording(
         rec, daemon=args.daemon, slots=args.slots, chunk=args.chunk,
@@ -433,7 +434,12 @@ def main(argv=None) -> int:
             print(f"replay: incident (with breach-window recording "
                   f"slice) dumped to {args.incident_dir}",
                   file=sys.stderr)
+            if args.shrink:
+                _shrink_to_fixture(rec, slo, args, dev)
             return soak_mod.EXIT_SLO_BREACH
+        if args.shrink:
+            print("replay: --shrink skipped (no SLO breach to "
+                  "preserve)")
     if burn is not None and burn.breached():
         for a in burn.alerts:
             print(f"replay: BURN-RATE ALERT at t={a['t_s']:.3f}s: "
@@ -473,6 +479,87 @@ def _print_summary(doc: dict, report: Optional[dict]) -> None:
         print(regress.format_latency_report(report))
 
 
+# lint: host
+def _json_safe(res: dict) -> str:
+    safe = {k: v for k, v in res.items()
+            if isinstance(v, (str, int, float, bool, list, dict,
+                              type(None)))}
+    return json.dumps(safe, indent=2, sort_keys=True, default=str)
+
+
+# lint: host
+def _replay_fixture(path: str, as_json: bool, device=None) -> int:
+    from ue22cs343bb1_openmp_assignment_tpu_torch.analysis import fixtures
+    res = fixtures.replay(path, device=device)
+    if as_json:
+        print(_json_safe(res))
+    print(f"replay: fixture verdict {res['verdict']!r} "
+          f"(expected {res['expected_verdict']!r}) -> "
+          f"{'REPRODUCED' if res['reproduced'] else 'NOT reproduced'}")
+    return 0 if res["reproduced"] else 1
+
+
+# lint: host
+def _replay_flight(path: str, as_json: bool, device=None) -> int:
+    from ue22cs343bb1_openmp_assignment_tpu_torch.obs import flight
+    inc = flight.load_incident(path)
+    try:
+        res = flight.replay_incident(path, device=device)
+    except FileNotFoundError:
+        print(f"replay: incident {path} has no repro.json (reason "
+              f"{inc['reason']!r}) — its Perfetto trace is the "
+              "artifact; nothing to re-execute")
+        return 2
+    if as_json:
+        print(_json_safe(res))
+    verdict = res.get("verdict")
+    # JAX's test, kept: run_case's verdicts are "ok" or a finding,
+    # never "pass", so this always holds
+    reproduced = verdict != "pass"
+    print(f"replay: flight incident (reason {inc['reason']!r}) fresh "
+          f"verdict {verdict!r} -> "
+          f"{'REPRODUCED' if reproduced else 'NOT reproduced'}")
+    return 0 if reproduced else 1
+
+
+# lint: host
+def _shrink_to_fixture(rec: dict, slo, args, device) -> None:
+    from ue22cs343bb1_openmp_assignment_tpu_torch.analysis import shrink
+    try:
+        shrunk, n_tests = shrink.shrink_recording(
+            rec, lambda sub: _breaches(sub, slo, args, device))
+    except ValueError as e:
+        # possible when the breach was observed through --daemon but
+        # the in-proc predicate replay stays under the bound
+        print(f"replay: shrink aborted: {e}")
+        return
+    jobs = sorted({row["job"] for row in shrunk["rows"]
+                   if row["event"] == "submit"})
+    print(f"replay: shrink converged to {len(jobs)} job(s) in "
+          f"{n_tests} replays: {', '.join(jobs)}")
+    doc = _replay_for_slo(shrunk, args, device)
+    breaches = soak_mod.check_slo(doc["latency"], slo)
+    soak_mod.dump_incident(args.shrink_out, doc, breaches, rec=shrunk)
+    print(f"replay: minimal incident fixture written to "
+          f"{args.shrink_out} (replay it with `cache-sim replay "
+          f"{args.shrink_out}`)")
+
+
+# lint: host
+def _replay_for_slo(sub_rec: dict, args, device) -> dict:
+    return replay_recording(
+        sub_rec, slots=args.slots, chunk=args.chunk,
+        max_cycles=args.max_cycles,
+        queue_capacity=args.queue_capacity, wave_s=args.wave_s,
+        device=device)
+
+
+# lint: host
+def _breaches(sub_rec: dict, slo, args, device) -> bool:
+    if not any(row["event"] == "submit" for row in sub_rec["rows"]):
+        return False
+    doc = _replay_for_slo(sub_rec, args, device)
+    return bool(soak_mod.check_slo(doc["latency"], slo))
 
 
 if __name__ == "__main__":
