@@ -237,6 +237,22 @@ Phases (each prints its own line; any failure exits non-zero):
    repro under the mutation reproduces it; the cycle rate of the async
    runs and a cycle's device launches under a torch.profiler window.
 
+17. walkers (slice 17; sizes in WALKERS), in a child process started
+   beside the fuzz child: ``cache-sim-torch analyze --skip-model-check
+   --skip-lint --jaxpr --kernel --index --json`` on the card (exit 0;
+   the fused round at the claim key's extremes bit-identical to the
+   plain round; the deep round's derived shared memory equal to
+   ``deep_round_smem_bytes()``; each cooperative kernel's derived grid
+   equal to the runtime's; a second load of every library without
+   nvcc) and with ``--cpu`` in a child of it (exit 0; the index
+   inventory of every target that launched no kernel equal to the
+   card's); ``--kernel --mutation`` widen_min_chunk, narrow_ladder_gap,
+   lift_storm_gate and ``--index --mutation split_packed_scatter`` exit
+   1, each killed with its finding kind; the prongs' seconds, each
+   target's aten ops and index sites, indices per instruction and each
+   kernel's registers, spills, shared memory and blocks a
+   multiprocessor; the phase's time against its 40 s budget.
+
 Each phase's seconds are printed after the last phase.
 ``python3 chip_smoke.py --serve-run 1024`` runs only the serving run,
 at the JAX ``--serve`` mix's 1024 jobs and the median of 3.
@@ -4809,56 +4825,66 @@ def _fuzz_rates(card: str, cases: list) -> None:
         f"share {prof['device_idle_share']:.3f}; {card}")
 
 
-def start_fuzz(card: str):
-    """Start the fuzz phase in a fresh interpreter (``fuzz_main``), its
-    output into a temporary log: the phase is host-bound (~10 ms of
-    Python a cycle, the card idle 96 % of it), so it runs beside other
-    phases, and a fresh process keeps it off the slowdown this
+def _start_child(main: str, card: str, name: str):
+    """Start ``chip_smoke.<main>(card)`` in a fresh interpreter, its
+    output into a temporary log: the fuzz and walkers phases are
+    host-bound (the card idles most of their time), so they run beside
+    other phases, and a fresh process keeps them off the slowdown this
     long-lived one shows late (section 7 of PERF.md)."""
     import os
     import tempfile
-    fd, log_path = tempfile.mkstemp(prefix="chip_smoke_fuzz", suffix=".log")
+    fd, log_path = tempfile.mkstemp(prefix=f"chip_smoke_{name}",
+                                    suffix=".log")
     log = os.fdopen(fd, "w")
     proc = subprocess.Popen(
         [sys.executable, "-c", "import sys, chip_smoke; "
-         "sys.exit(chip_smoke.fuzz_main(sys.argv[1]))", card],
+         f"sys.exit(chip_smoke.{main}(sys.argv[1]))", card],
         cwd=os.path.dirname(os.path.abspath(__file__)), stdout=log,
         stderr=subprocess.STDOUT, start_new_session=True)
     log.close()
-    return proc, log_path, time.perf_counter()
+    return proc, log_path, time.perf_counter(), name
 
 
-def finish_fuzz(started) -> None:
-    """Wait for the fuzz child (killing it, and its children, at the
+def _finish_child(started, timeout_s: float) -> None:
+    """Wait for a phase's child (killing it, and its children, at the
     timeout), print its output here, and fail if it failed."""
-    proc, log_path, t0 = started
+    proc, log_path, t0, name = started
     try:
-        rc = proc.wait(timeout=max(1.0, FUZZ["phase_timeout_s"]
+        rc = proc.wait(timeout=max(1.0, timeout_s
                                    - (time.perf_counter() - t0)))
     except subprocess.TimeoutExpired:
-        raise SmokeFailure(f"fuzz phase timed out after "
-                           f"{FUZZ['phase_timeout_s']:.0f} s")
+        raise SmokeFailure(f"{name} phase timed out after "
+                           f"{timeout_s:.0f} s")
     finally:
         with open(log_path) as f:
             print(f.read(), end="", flush=True)
-        stop_fuzz(started)
+        stop_child(started)
     if rc != 0:
-        raise SmokeFailure(f"fuzz phase exited {rc}")
-    say("fuzz", f"fuzz child done {time.perf_counter() - t0:.1f} s after "
+        raise SmokeFailure(f"{name} phase exited {rc}")
+    say(name, f"{name} child done {time.perf_counter() - t0:.1f} s after "
         "its start")
 
 
-def stop_fuzz(started) -> None:
-    """Kill the fuzz child and its process group if it still runs, and
+def stop_child(started) -> None:
+    """Kill a phase's child and its process group if it still runs, and
     remove its log."""
     import os
     import signal
-    proc, log_path, _ = started
+    proc, log_path, _, _ = started
     if proc.poll() is None:
         os.killpg(proc.pid, signal.SIGKILL)
         proc.wait()
     if os.path.exists(log_path):
         os.unlink(log_path)
+
+
+def start_fuzz(card: str):
+    """Start the fuzz phase (``fuzz_main``) in a child process."""
+    return _start_child("fuzz_main", card, "fuzz")
+
+
+def finish_fuzz(started) -> None:
+    _finish_child(started, FUZZ["phase_timeout_s"])
 
 
 def phase_fuzz(card: str) -> None:
@@ -4954,6 +4980,180 @@ def _fuzz_work(card: str) -> None:
     say("fuzz", f"fuzz phase took {time.perf_counter() - t0:.1f} s; {card}")
 
 
+#: the walkers phase (slice 17): the analyze prongs of the static
+#: walkers on the card, the same with --cpu in a child, and each seeded
+#: mutation with its prong and finding kind
+WALKERS = dict(budget_s=40.0, phase_timeout_s=300.0,
+               argv=("--skip-model-check", "--skip-lint", "--jaxpr",
+                     "--kernel", "--index"),
+               mutations=(("widen_min_chunk", "--kernel", "key_range"),
+                          ("narrow_ladder_gap", "--kernel", "field_width"),
+                          ("lift_storm_gate", "--kernel",
+                           "gate_divergence"),
+                          ("split_packed_scatter", "--index",
+                           "index_budget")))
+
+
+def start_walkers(card: str):
+    """Start the walkers phase (``walkers_main``) in a child process."""
+    return _start_child("walkers_main", card, "walkers")
+
+
+def finish_walkers(started) -> None:
+    _finish_child(started, WALKERS["phase_timeout_s"])
+
+
+def phase_walkers(card: str) -> None:
+    """The walkers phase alone (``walkers_main`` in a child process)."""
+    finish_walkers(start_walkers(card))
+
+
+def walkers_main(card: str) -> int:
+    """The walkers phase's work; prints FAIL and exits 1 on a failure."""
+    try:
+        _walkers_work(card)
+    except (SmokeFailure, AssertionError, RuntimeError, ValueError,
+            KeyError) as e:
+        print(f"FAIL: walkers: {type(e).__name__}: {e}", flush=True)
+        return 1
+    return 0
+
+
+def _inventory(doc: dict) -> dict:
+    """{target: its index sites (no signatures or buffer tokens)} of the
+    index report's targets that launched no kernel of the port."""
+    keys = ("primitive", "site", "plane", "operand", "index_shape",
+            "update", "trip_weight", "indices")
+    return {name: [tuple(op.get(k) for k in keys) for op in t["ops"]]
+            for er in doc["index"]["engines"].values()
+            for name, t in er["targets"].items()
+            if not t["kernel_launches"]}
+
+
+def _walkers_card_checks(doc: dict) -> None:
+    """The card-only contracts of the kernel and replay reports."""
+    k = doc["kernel"]
+    er = k["exactness"]["extreme_rounds"]
+    if not er or er["device"] != "cuda" or not er["equal"]:
+        raise SmokeFailure(f"the fused round at the key extremes: {er}")
+    deep = next(r for r in k["vmem"]["rows"]
+                if r["kernel"] == "deep.round_fused")
+    if deep.get("library_dynamic_bytes") != deep["resident_in_bytes"]:
+        raise SmokeFailure(f"deep round shared memory: derived "
+                           f"{deep['resident_in_bytes']} B, the library "
+                           f"{deep.get('library_dynamic_bytes')} B")
+    for name, row in k["lowerability"]["kernels"].items():
+        for n, g in (row.get("grids") or {}).items():
+            if g.get("runtime") != g["derived"]:
+                raise SmokeFailure(f"{name} at {n} nodes: derived grid "
+                                   f"{g['derived']}, the runtime's "
+                                   f"{g.get('runtime')}")
+    if doc["jaxpr"]["recompile_guard"]["kernel_nvcc_runs"] != 0:
+        raise SmokeFailure("a second load of the kernel libraries ran nvcc")
+
+
+def _walkers_work(card: str) -> None:
+    """``cache-sim-torch analyze --skip-model-check --skip-lint --jaxpr
+    --kernel --index`` on the card and with --cpu in a child process
+    beside it: exit 0 both; on the card the fused round at the key
+    extremes equal to the plain round, the deep round's derived shared
+    memory equal to ``deep_round_smem_bytes()``, each cooperative
+    kernel's derived grid equal to the runtime's, a second library load
+    without nvcc; the index inventory of every target that launched no
+    kernel equal to the CPU's; each seeded mutation exits 1 with its
+    finding kind. Prints the prongs' seconds, each target's aten ops and
+    index sites, indices per instruction and each kernel's ptxas
+    figures."""
+    import os
+    import tempfile
+    W = WALKERS
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cpu_json = os.path.join(tmp, "cpu.json")
+        cpu = subprocess.Popen(
+            [sys.executable, "-m",
+             "ue22cs343bb1_openmp_assignment_tpu_torch.analysis", "--cpu",
+             *W["argv"], "-q", "--json", cpu_json],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        try:
+            rc, doc, took = _analyze_json(tmp, "walkers", list(W["argv"]))
+            if rc != 0:
+                bad = [f for b in ("jaxpr", "kernel", "index")
+                       for f in doc[b]["findings"]]
+                raise SmokeFailure(f"analyze {' '.join(W['argv'])} on the "
+                                   f"card: exit {rc}: {bad[:6]}")
+            _walkers_card_checks(doc)
+            for mut, prong, kind in W["mutations"]:
+                mrc, mdoc, mtook = _analyze_json(
+                    tmp, mut, ["--skip-model-check", "--skip-lint", prong,
+                               "--mutation", mut])
+                rep = mdoc[prong.lstrip("-")]
+                kinds = sorted({f["kind"] for f in rep["findings"]})
+                if mrc != 1 or not rep.get("mutant_killed") \
+                        or kind not in kinds:
+                    raise SmokeFailure(f"--mutation {mut}: exit {mrc}, "
+                                       f"kinds {kinds}, want {kind}")
+                say("walkers", f"{prong} --mutation {mut} on the card: "
+                    f"exit 1, killed with {kind} (kinds {kinds}); "
+                    f"{mtook:.2f} s")
+            out, _ = cpu.communicate(timeout=W["phase_timeout_s"])
+        finally:
+            if cpu.poll() is None:
+                cpu.kill()
+                cpu.wait()
+        if cpu.returncode != 0:
+            raise SmokeFailure(f"analyze --cpu {' '.join(W['argv'])}: exit "
+                               f"{cpu.returncode}: {out[-2000:]}")
+        with open(cpu_json) as fh:
+            cdoc = json.load(fh)
+    card_inv, cpu_inv = _inventory(doc), _inventory(cdoc)
+    same = sorted(set(card_inv) & set(cpu_inv))
+    differ = [t for t in same if card_inv[t] != cpu_inv[t]]
+    if differ or not same:
+        raise SmokeFailure(f"index inventory on the card != the CPU's for "
+                           f"{differ or 'every target'}")
+    routed = sorted(set(_inventory(cdoc)) - set(card_inv))
+    secs = {n: round(p["seconds"], 2) for n, p in doc["prongs"].items()}
+    csecs = {n: round(p["seconds"], 2) for n, p in cdoc["prongs"].items()}
+    say("walkers", f"analyze {' '.join(W['argv'])}: exit 0 on the card "
+        f"({took:.2f} s; prongs {secs}) and with --cpu (prongs {csecs}); "
+        f"the index inventory of {len(same)} kernel-free targets equal, "
+        f"card and CPU; kernel-route targets on the card: {routed}")
+    j = doc["jaxpr"]
+    say("walkers", f"seconds a lint target on the card {j['seconds']}; "
+        f"replay guard {j['recompile_guard']['seconds']}")
+    say("walkers", "aten ops / index sites a call on the card: "
+        + ", ".join(f"{t} {n} / {j['index_sites'].get(t, '-')}"
+                    for t, n in j["targets"].items())
+        + f"; kernel launches {j['kernel_launches']}")
+    say("walkers", "indices/instr: " + ", ".join(
+        f"{e} {er['indices_per_instr']} ({er['indices_per_step']}/step, "
+        f"{er['probe']['steps']} steps, {er['probe']['retired']} retired)"
+        for e, er in doc["index"]["engines"].items()))
+    k = doc["kernel"]
+    for name, row in k["lowerability"]["kernels"].items():
+        occ = row.get("blocks_per_sm")
+        say("walkers", f"{name}: {row.get('registers')} registers, "
+            f"{row.get('spill_stores', 0)} B spill stores, "
+            f"{row.get('smem', 0)} B static smem"
+            + (f", {occ['blocks']} blocks/SM ({occ}), grids "
+               f"{row['grids']}" if occ else ""))
+    for r in k["vmem"]["rows"]:
+        say("walkers", f"{r['kernel']}: {r['resident_in_bytes']} B dynamic "
+            f"+ {r['resident_out_bytes']} B static shared memory a block, "
+            f"library {r.get('library_dynamic_bytes')} / "
+            f"{r.get('library_static_bytes')} B")
+    er = k["exactness"]["extreme_rounds"]
+    say("walkers", f"fused round vs plain round at rounds "
+        f"{[r['round'] for r in er['rounds']]} on a contended "
+        f"{er['num_nodes']}-node machine: bit-identical")
+    took_all = time.perf_counter() - t0
+    say("walkers", f"walkers phase took {took_all:.1f} s (budget "
+        f"{W['budget_s']:.0f} s: "
+        f"{'within' if took_all <= W['budget_s'] else 'OVER'}); {card}")
+
+
 def phase_multi_card() -> None:
     import torch
     from ue22cs343bb1_openmp_assignment_tpu_torch.parallel import ring_kernel
@@ -5030,6 +5230,8 @@ def main(argv=None) -> int:
             threefry_kernel)
         from ue22cs343bb1_openmp_assignment_tpu_torch.parallel import (
             ring_kernel)
+        from ue22cs343bb1_openmp_assignment_tpu_torch.analysis import (
+            indexcheck)
         cfg = bench_cfg(BENCH["num_nodes"])
         phase_build(
             [(deep_fold_kernel.LIBRARY, c)
@@ -5055,6 +5257,9 @@ def main(argv=None) -> int:
             # one ring library serves every (D, shape), one threefry
             # library every key, count and mode: all run-time arguments
             + [(ring_kernel.LIBRARY, None), (threefry_kernel.LIBRARY, None)]
+            # the deep probe config of the analyze walkers (phase 17)
+            + [(lib.LIBRARY, indexcheck.engine_config("deep", 8))
+               for lib in (deep_fold_kernel, deep_round_kernel)]
             + cli_configs())
         times = {"device + build": time.perf_counter() - t_all}
 
@@ -5091,13 +5296,16 @@ def main(argv=None) -> int:
         # children (this process only waits for them) and the analyze
         # phase
         fuzz_run = start_fuzz(card)
+        walkers_run = start_walkers(card)
         try:
             timed("history", phase_history, card)
             timed("report", phase_report, card)
             timed("analyze", phase_analyze, card)
             timed("fuzz (rest)", finish_fuzz, fuzz_run)
+            timed("walkers (rest)", finish_walkers, walkers_run)
         finally:
-            stop_fuzz(fuzz_run)
+            stop_child(fuzz_run)
+            stop_child(walkers_run)
         say("time", ", ".join(f"{k} {v:.1f} s" for k, v in times.items()))
     except (SmokeFailure, AssertionError, RuntimeError, ValueError) as e:
         print(f"FAIL: {type(e).__name__}: {e}", flush=True)

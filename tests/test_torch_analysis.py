@@ -342,8 +342,21 @@ def test_runner_usage_error_exits_2(capsys):
     ("--mutation", "widen_min_chunk"), ("--mutation", "split_packed_scatter"),
 ])
 def test_runner_waiting_prongs_exit_2(capsys, argv):
-    rc, out, err = _run(capsys, "--cpu", *argv)
-    assert rc == 2 and "ROADMAP.md" in err and not out
+    """The JAX runner's last three prongs and their mutations, which
+    once waited for a later slice: each prong now runs and passes on the
+    shipped tree (0); a mutation with no prong that reads it runs
+    nothing, as in the JAX runner (its exit code on the same flags)."""
+    flags = ("--skip-model-check", "--skip-lint")
+    rc, out, err = _run(capsys, "--cpu", *flags, *argv)
+    if argv[0] == "--mutation":
+        from ue22cs343bb1_openmp_assignment_tpu.analysis import (
+            runner as j_runner)
+        want = j_runner.main([*flags, *argv])
+        capsys.readouterr()
+    else:
+        want = 0
+    assert rc == want == 0, out + err
+    assert out.splitlines()[-1] == "analyze: PASS"
 
 
 def test_runner_needs_the_card_unless_cpu(capsys, monkeypatch):

@@ -664,3 +664,41 @@ def test_wave_on_card_equals_cpu(card):
     docs = [serve.serve(specs, slots=4, chunk=8, clock=VirtualClock(),
                         device=dev) for dev in ("cpu", "cuda")]
     assert docs[0] == docs[1]
+
+
+def test_kernel_contracts_on_card(card):
+    """``analyze --kernel`` on the card: the fused round at the claim
+    key's extremes equal to the plain round, every derived shared-memory
+    figure equal to the library's entry, every cooperative grid equal to
+    the runtime's, the ptxas figures within their pins."""
+    from ue22cs343bb1_openmp_assignment_tpu_torch.analysis import (
+        kernelcheck)
+    rep = kernelcheck.check(trace=True, device=card)
+    assert rep["ok"], rep["findings"]
+    assert rep["exactness"]["extreme_rounds"]["equal"]
+    assert all("library_dynamic_bytes" in r for r in rep["vmem"]["rows"])
+    grids = [g for k in rep["lowerability"]["kernels"].values()
+             for g in (k.get("grids") or {}).values()]
+    assert len(grids) == 6 and all(g["runtime"] == g["derived"]
+                                   for g in grids)
+
+
+def test_index_inventory_on_card_equals_cpu(card):
+    """Targets that take no kernel route record the same index sites on
+    the card as on the CPU; a kernel route is one opaque site a
+    kernel."""
+    from ue22cs343bb1_openmp_assignment_tpu_torch.analysis import (
+        indexcheck)
+    keys = ("primitive", "site", "plane", "operand", "index_shape",
+            "update", "trip_weight", "indices")
+    for engine in indexcheck.ENGINES:
+        reps = {d: indexcheck.check([engine], probe=False, device=d)
+                for d in ("cpu", card)}
+        assert reps[card]["ok"], reps[card]["findings"]
+        for name, t in reps[card]["engines"][engine]["targets"].items():
+            cpu_t = reps["cpu"]["engines"][engine]["targets"][name]
+            if t["kernel_launches"]:
+                assert {op["primitive"] for op in t["ops"]} >= {"kernel"}
+                continue
+            assert [[op.get(k) for k in keys] for op in t["ops"]] == \
+                [[op.get(k) for k in keys] for op in cpu_t["ops"]]

@@ -71,14 +71,18 @@ def test_scans_cover_the_analysis_copies():
     """The analysis gate's modules (slice 15) are among the scanned
     modules: the port keeps its own copies of the JAX package's
     jax-free checkers (verify_table, litmus, lint_trace, runner), and
-    its fuzzing half (slice 16: fuzz, axioms, fixtures, shrink)."""
+    its fuzzing half (slice 16: fuzz, axioms, fixtures, shrink) and the
+    static walkers' counterparts (slice 17: lint_aten, indexcheck,
+    kernelcheck)."""
     mods = {m for m, _ in _port_modules()}
     for copy in ("analysis", "analysis.__main__", "analysis.protocol_table",
                  "analysis.verify_table", "analysis.model_check",
                  "analysis.conformance", "analysis.mutations",
                  "analysis.litmus", "analysis.lint_trace",
                  "analysis.runner", "analysis.fuzz", "analysis.axioms",
-                 "analysis.fixtures", "analysis.shrink"):
+                 "analysis.fixtures", "analysis.shrink",
+                 "analysis.lint_aten", "analysis.indexcheck",
+                 "analysis.kernelcheck"):
         assert f"{PKG}.{copy}" in mods, copy
 
 

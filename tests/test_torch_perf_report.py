@@ -98,7 +98,17 @@ def test_perf_report_on_cpu(engine, capsys):
                if k.get("basis") == "aten-dispatch")
     assert (doc["steps"], doc["retired"]) == _reference(engine)
     assert ("fused" in doc) == (engine == "deep")
-    assert "vmem" not in doc and "index" not in doc
+    # JAX's blocks: vmem on the deep engine, index on every engine
+    assert ("vmem" in doc) == (engine == "deep")
+    if engine == "deep":
+        assert [r["kernel"] for r in doc["vmem"]] == ["deep.fold",
+                                                      "deep.round_fused"]
+        assert all(r["ok"] and r["vmem_bytes"] == 227 * 1024
+                   for r in doc["vmem"])
+    ix = doc["index"]
+    assert ix["engine"] == engine and ix["index_sites"] > 0
+    assert ix["indices_per_instr"] == round(
+        ix["indices_per_step"] * doc["steps"] / doc["retired"], 3)
     assert _report(_argv(engine), capsys) == first
 
 
@@ -121,7 +131,7 @@ def test_perf_report_text_and_timing(capsys):
     assert out.startswith("perf-report: async engine, 8 nodes (cpu,")
     assert "timing (nondeterministic)" in out and "DISPATCH-BOUND" in out
     assert "transport (wire-shape, 8 shards" in out
-    assert "vmem and index blocks: not in the port" in out
+    assert "index pressure (step.cycle" in out and "by plane:" in out
 
 
 def test_perf_report_usage_errors(capsys, monkeypatch):

@@ -24,9 +24,14 @@ and its fuzzing half:
   (jobs), the counterpart of the JAX package's ``analysis/shrink.py``;
 * :mod:`.fixtures`: the ``cache-sim/repro/v1`` fixture format.
 
-The jaxpr walkers of the JAX package's ``analysis/`` (``lint_jaxpr``,
-``kernelcheck``, ``indexcheck``) are not ported yet (ROADMAP.md,
-Queue 1).
+and its static walkers, the counterparts of the JAX package's jaxpr
+walkers:
+
+* :mod:`.lint_aten`: the IR lint over the aten op stream a hot path
+  dispatches and the replay guard (JAX ``lint_jaxpr``);
+* :mod:`.indexcheck`: the index-pressure auditor (aten index sites);
+* :mod:`.kernelcheck`: the CUDA kernels' contracts (packed-word bit
+  budgets, shared memory, ptxas resources, residency, the gate).
 """
 
 from ue22cs343bb1_openmp_assignment_tpu_torch.analysis.model_check import (  # noqa: F401

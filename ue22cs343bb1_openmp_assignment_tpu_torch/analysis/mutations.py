@@ -18,15 +18,20 @@ corrupt only the values a program observes: the litmus enumeration
 catches them. The table mutations perturb the declarative table, and
 ``verify_table`` catches them without running a cycle.
 
-The JAX package's kernel mutations (``KERNEL_MUTATIONS``) and index
-mutations (``INDEX_MUTATIONS``) seed bugs in the Pallas round's
-arithmetic and the packed-commit index sites, which the ``--kernel``
-and ``--index`` prongs check; those prongs are not ported yet
-(ROADMAP.md, Queue 1).
+The kernel mutations (:data:`KERNEL_MUTATIONS`, JAX's three names) each
+perturb a parameter the port's fused round or its gate really routes
+with, and the ``--kernel`` prong (``analysis/kernelcheck``) must kill
+each one statically at the headline config with its finding kind. The
+CUDA round has no f32 exponent ladder, so the names keep JAX's and the
+perturbations are the port's own (each docstring says which). The
+index mutation (:data:`INDEX_MUTATIONS`) flips ``ops.step.
+_PACKED_COMMIT`` to a bit-identical per-plane commit that only the
+``--index`` prong (``analysis/indexcheck``) can see.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -240,10 +245,110 @@ TABLE_MUTATIONS = {
     "table_drop_row": (table_drop_row, "totality_hole"),
 }
 
-#: the JAX package's kernel and index mutations, whose prongs
-#: (``--kernel``, ``--index``) wait for a later slice (ROADMAP.md)
-LATER_MUTATIONS = ("widen_min_chunk", "narrow_ladder_gap",
-                   "lift_storm_gate", "split_packed_scatter")
+
+
+@contextlib.contextmanager
+def widen_min_chunk():
+    """Widen the claim key's slot field by one bit without giving the
+    bit back in ``claim_max_rounds``: ``deep_engine.slot_bits`` (the
+    lane key's layout in the plain round, and the kernel's SB) counts
+    one more slot bit than ``sync_engine.claim_max_rounds`` budgets for.
+    Looks like headroom for more slots; at the headline (one wave, 4096
+    nodes) the fresh-key threshold ``(countdown + 1) << (pb + 2)``
+    reaches 2**31 at round 0 and passes int32's sign bit, so every fresh
+    key compares as stale. (JAX's mutant widens its f32 ladder's chunk;
+    the CUDA round has no ladder.) Expected: `key_range` from the
+    exactness pass."""
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import deep_engine
+    old = deep_engine.slot_bits
+    deep_engine.slot_bits = lambda cfg: old(cfg) + 1
+    try:
+        yield
+    finally:
+        deep_engine.slot_bits = old
+
+
+@contextlib.contextmanager
+def narrow_ladder_gap():
+    """Narrow the requester-id field of DM_REQ (and of the fan-out's
+    line word) from 16 to 12 bits: ``deep_engine.REQ_BITS``. Looks like
+    room for a wider round-value channel; but SystemConfig admits
+    deep-window machines of 65536 nodes, whose ids no longer fit, and
+    at the headline's 4096 nodes node 4095 is the all-ones field, the
+    read storm's "matches nobody" sentinel. (JAX's mutant narrows its
+    ladder's exponent gap.) Expected: `field_width` from the exactness
+    pass."""
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import deep_engine
+    old = deep_engine.REQ_BITS
+    deep_engine.REQ_BITS = 12
+    try:
+        yield
+    finally:
+        deep_engine.REQ_BITS = old
+
+
+@contextlib.contextmanager
+def lift_storm_gate():
+    """Drop the read-storm structural gate from
+    ``deep_round_kernel.supported``, as JAX's mutant drops it from
+    ``pallas_round.supported``: the masks fit small storm configs, but
+    the storm's duplicate commit rows and per-entry reader counts are
+    outside the kernel (``csrc/deep_round.cu`` refuses ``DF_STORM``).
+    Expected: `gate_divergence` from the gate pass (supported() says
+    yes on the storm probe; the analyzer says no)."""
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import (
+        deep_round_kernel as drk)
+    old = drk.supported
+
+    def patched(cfg):
+        return cfg.deep_window and max(cfg.cache_size, 1 << cfg.block_bits,
+                                       cfg.deep_slots) <= 32
+
+    drk.supported = patched
+    try:
+        yield
+    finally:
+        drk.supported = old
+
+
+#: name -> (context manager seeding the bug, kernelcheck finding kind
+#: the --kernel prong must raise). All killed with trace=False: the
+#: exactness and gate passes are integer arithmetic.
+KERNEL_MUTATIONS = {
+    "widen_min_chunk": (widen_min_chunk, "key_range"),
+    "narrow_ladder_gap": (narrow_ladder_gap, "field_width"),
+    "lift_storm_gate": (lift_storm_gate, "gate_divergence"),
+}
+
+
+@contextlib.contextmanager
+def split_packed_scatter():
+    """Flip ``ops.step._PACKED_COMMIT``: the cycle's commit becomes one
+    gather and one ``index_put_`` a plane (cache_state/addr/val on one
+    index vector, memory/dir_state/dir_bitvec on another), unset
+    columns writing back their gathered old value. Bit-identical to the
+    shipped one-hot commit: the model checker, the fuzzer, conformance
+    and every golden dump stay green, but the index sites of
+    step.cycle go from 23 to 35 and the per-plane scatters form the
+    shared-index / distinct-destination pattern the merge detector
+    names. Expected: `index_budget` from the --index prong's budget
+    pass, plus merge candidates in step.cycle listing the split planes.
+    Only the static index audit can see this mutant."""
+    from ue22cs343bb1_openmp_assignment_tpu_torch.ops import step
+    old = step._PACKED_COMMIT
+    step._PACKED_COMMIT = False
+    try:
+        yield
+    finally:
+        step._PACKED_COMMIT = old
+
+
+#: name -> (context manager seeding the bug, indexcheck finding kind
+#: the --index prong must raise). Semantics-preserving by construction:
+#: killed by the static inventory alone.
+INDEX_MUTATIONS = {
+    "split_packed_scatter": (split_packed_scatter, "index_budget"),
+}
 
 
 # name -> (wrapper, scope that exposes it, finding the checker must raise)

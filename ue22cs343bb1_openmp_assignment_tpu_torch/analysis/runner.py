@@ -9,16 +9,19 @@ table-vs-handlers conformance), the memory-consistency litmus matrix
 behind ``--litmus`` and the coverage-guided differential fuzzer behind
 ``--fuzz N`` (analysis/fuzz.py; findings ddmin-shrunk by
 analysis/shrink.py into ``--repro-dir``, flight incidents into
-``--flight-dir``). The engines run on the card unless ``--cpu``; with
-no card and no ``--cpu`` the verb exits 1 and runs nothing on the CPU. Prints a human report that keeps
+``--flight-dir``), and the static walkers: ``--jaxpr`` (the aten-level
+IR lint and replay guard, analysis/lint_aten.py), ``--kernel`` (the
+CUDA kernels' contracts, analysis/kernelcheck.py) and ``--index`` (the
+index-pressure audit, analysis/indexcheck.py), with their seeded
+mutations. The engines run on the card unless ``--cpu``; with no card
+and no ``--cpu`` the verb exits 1 and runs nothing on the CPU. On the
+card ``--kernel`` builds the kernel libraries and reads their ptxas
+logs and runtime entries; with ``--cpu`` it reads the ptxas capture
+committed beside kernelcheck.py. Prints a human report that keeps
 reference-sanctioned quirks (`~`) visually distinct from genuine
 violations (`!`), optionally writes the full JSON report (the JAX
 runner's blocks, plus ``prongs``: each prong's wall seconds and oracle
-batches), and exits by the code table in ``--help``.
-
-Not ported yet (ROADMAP.md, Queue 1): the jaxpr lint and recompilation
-guard (``--jaxpr``), the kernel-contract prong (``--kernel``), the
-index-pressure prong (``--index``) and their mutations. Each exits 2 with a note. ``python -m
+batches), and exits by the code table in ``--help``. ``python -m
 ue22cs343bb1_openmp_assignment_tpu_torch.analysis`` is the same command.
 """
 
@@ -57,7 +60,8 @@ def build_parser() -> argparse.ArgumentParser:
         prog="cache-sim-torch analyze",
         description="Statically verify the coherence engine: "
                     "symmetry-reduced protocol model checking, "
-                    "AST + jaxpr lint, differential fuzzing.",
+                    "AST + aten-level lint, kernel contracts, index "
+                    "pressure, differential fuzzing.",
         epilog=_EPILOG,
         formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--scopes", "--scope", dest="scopes", default=None,
@@ -119,31 +123,32 @@ def build_parser() -> argparse.ArgumentParser:
                         "here (telemetry ring + metrics + Perfetto "
                         "trace + repro fixture; obs/flight.py)")
     p.add_argument("--jaxpr", action="store_true",
-                   help="run the jaxpr IR lint over the ops/ hot paths "
-                        "plus the three-engine recompilation guard")
+                   help="run the IR lint over the aten op streams of "
+                        "the hot paths (analysis/lint_aten.py) plus the "
+                        "replay guard (one op stream per shape, the "
+                        "build caches reused)")
     p.add_argument("--kernel", action="store_true",
                    help="run the kernel-contract prong: re-derive the "
-                        "fused round's contender cap from (chunk bits, "
-                        "weight exponents, f32 mantissa) with machine-"
-                        "checked rounding lemmas, trace the kernel body "
-                        "for a static VMEM footprint vs the device "
-                        "budget, lint the jaxpr for non-lowerable "
-                        "primitives, and cross-check pallas_round."
-                        "supported() against the derived bounds")
+                        "deep round's packed-word bit budgets in exact "
+                        "integers and check the key at its extremes, "
+                        "each kernel's shared memory against the "
+                        "card's, the ptxas registers, spills and the "
+                        "cooperative grids' residency, and cross-check "
+                        "deep_round_kernel.supported() against the "
+                        "derivation")
     p.add_argument("--kernel-nodes", type=int, default=4096,
                    metavar="N",
                    help="node count for the kernel-contract headline "
                         "config (default 4096, the perf-report deep "
                         "headline)")
     p.add_argument("--kernel-static", action="store_true",
-                   help="skip the kernel-body trace: exactness + gate "
-                        "passes and the block-table VMEM row only "
-                        "(~1s instead of ~15s; traced liveness peak "
-                        "and lowerability scan are skipped)")
+                   help="the arithmetic only: exactness + gate passes "
+                        "and the layout-formula shared memory (no "
+                        "build, no ptxas, no launch)")
     p.add_argument("--index", action="store_true",
-                   help="run the index-pressure prong: trace every hot "
-                        "body, inventory gather/scatter/dynamic-slice "
-                        "eqns with semantic-plane attribution, compute "
+                   help="run the index-pressure prong: record every hot "
+                        "body, inventory its aten index ops with "
+                        "semantic-plane attribution, compute "
                         "per-engine indices per retired instruction, "
                         "flag mergeable scatter pairs (shared index "
                         "vector, disjoint destinations) and enforce "
@@ -152,7 +157,7 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["async", "sync", "deep", "wave", "fused"],
                    help="restrict the index audit to one engine "
                         "(default: all five; async carries the "
-                        "sharded/RDMA parallel variants)")
+                        "routed delivery's router)")
     p.add_argument("--index-nodes", type=int, default=None,
                    metavar="N",
                    help="node count for the index audit (default 8, "
@@ -171,13 +176,6 @@ def build_parser() -> argparse.ArgumentParser:
                         "card; without one, --cpu is required)")
     return p
 
-
-#: the JAX runner's prongs this port does not have yet: flag -> note
-LATER_PRONGS = {
-    "--jaxpr": "the jaxpr lint and recompilation guard (lint_jaxpr.py)",
-    "--kernel": "the kernel-contract prong (kernelcheck.py)",
-    "--index": "the index-pressure prong (indexcheck.py)",
-}
 
 #: the report blocks the port computes as the JAX runner does, byte for
 #: byte under sort_keys (``lint`` reads another package's code)
@@ -208,12 +206,6 @@ def _print(quiet: bool, *a) -> None:
         print(*a)
 
 
-def _later(msg: str) -> int:
-    print(f"error: {msg} is not ported yet; see ROADMAP.md (Queue 1)",
-          file=sys.stderr)
-    return 2
-
-
 def _resolve_mutation(name):
     if name is None:
         return None, None, None
@@ -231,12 +223,30 @@ def _resolve_mutation(name):
             "values, so the invariant prongs cannot see it; run it "
             "through the litmus prong (--litmus --skip-model-check "
             "--skip-lint)")
+    if name in mutations.KERNEL_MUTATIONS:
+        raise SystemExit(
+            f"`{name}` is a kernel mutation — it perturbs the fused "
+            "Pallas round's arithmetic contracts (ladder constants / "
+            "support gates), which the protocol prongs never touch; "
+            "run it through the kernel-contract prong (--kernel "
+            "--skip-model-check --skip-lint)")
+    if name in mutations.INDEX_MUTATIONS:
+        raise SystemExit(
+            f"`{name}` is an index mutation — it re-splits the packed "
+            "commit scatters bit-identically, so every dynamic oracle "
+            "(model checker, fuzzer, conformance, goldens) stays "
+            "green; only the static index inventory can see it — run "
+            "it through the index prong (--index --skip-model-check "
+            "--skip-lint)")
     if name not in mutations.MUTATIONS:
         raise SystemExit(
             f"unknown mutation `{name}` (handler mutations: "
             f"{', '.join(mutations.MUTATIONS)}; table mutations: "
             f"{', '.join(mutations.TABLE_MUTATIONS)}; consistency "
-            f"mutations: {', '.join(mutations.CONSISTENCY_MUTATIONS)})")
+            f"mutations: {', '.join(mutations.CONSISTENCY_MUTATIONS)}; "
+            f"kernel mutations: "
+            f"{', '.join(mutations.KERNEL_MUTATIONS)}; index "
+            f"mutations: {', '.join(mutations.INDEX_MUTATIONS)})")
     return mutations.MUTATIONS[name]
 
 
@@ -374,6 +384,125 @@ def run_lint(paths, quiet) -> dict:
     return {"ok": not findings,
             "findings": [f.as_dict() for f in findings]}
 
+
+
+def run_jaxpr(quiet, device=None, tally=None) -> dict:
+    """The IR-lint prong: ``lint_aten.lint`` over the hot paths plus
+    the replay guard, on ``device``."""
+    from ue22cs343bb1_openmp_assignment_tpu_torch.analysis import lint_aten
+    rep = lint_aten.lint(device=device)
+    guard = lint_aten.replay_guard(device=device)
+    rep["recompile_guard"] = guard
+    rep["ok"] = bool(rep["ok"] and guard["ok"])
+    counts = ", ".join(f"{k}={v}" for k, v in rep["targets"].items())
+    _print(quiet, f"== jaxpr lint (aten ops): "
+                  f"{'ok' if rep['ok'] else 'FAIL'} "
+                  f"[{counts}; budget {rep['budget']}]")
+    for f in rep["findings"]:
+        _print(quiet, f"  ! {f['target']}: {f['rule']} — {f['detail']}")
+    same = ", ".join(f"{k}={'same' if v else 'DIFFERS'}"
+                     for k, v in guard["same_stream"].items())
+    _print(quiet, f"   replay guard: op streams {same}; native reuse="
+                  f"{guard['native_build_reused']}; kernel nvcc runs="
+                  f"{guard['kernel_nvcc_runs']}")
+    return rep
+
+
+def run_kernel(nodes, static, mutation, quiet, device=None,
+               tally=None) -> dict:
+    """The kernel-contract prong (analysis/kernelcheck.py): the packed
+    words' budgets, shared memory, the ptxas resource contract and the
+    gates. A seeded kernel mutation forces the static passes only —
+    every kernel mutant is killed by integer arithmetic — and the run
+    must then FAIL with the documented finding kind (asserted here, so a
+    mutant the verifier misses is itself a finding)."""
+    from ue22cs343bb1_openmp_assignment_tpu_torch.analysis import (
+        kernelcheck, mutations)
+    kmut = mutations.KERNEL_MUTATIONS.get(mutation) if mutation else None
+    if mutation is not None and kmut is None and \
+            mutation not in mutations.MUTATIONS:
+        # handler mutations riding along for another prong leave the
+        # kernels alone, so the prong just runs clean
+        raise SystemExit(
+            f"unknown mutation `{mutation}` (kernel mutations: "
+            f"{', '.join(mutations.KERNEL_MUTATIONS)})")
+
+    cfg = kernelcheck.headline_config(num_nodes=nodes)
+    if kmut is not None:
+        _print(quiet, f"== seeded kernel mutation `{mutation}` "
+                      f"(expected finding: {kmut[1]})")
+        with kmut[0]():
+            rep = kernelcheck.check(cfg, trace=False, device=device)
+        kinds = [f["kind"] for f in rep["findings"]]
+        rep["expected_kind"] = kmut[1]
+        rep["mutant_killed"] = (not rep["ok"]) and kmut[1] in kinds
+        if not rep["mutant_killed"]:
+            # the verifier MISSED a seeded bug: that is the failure
+            rep["ok"] = False
+            rep["findings"].append({
+                "pass": "mutation", "kind": "mutant_survived",
+                "detail": f"seeded kernel mutation `{mutation}` was not "
+                          f"caught (expected `{kmut[1]}`, got "
+                          f"{kinds or 'no findings'})"})
+    else:
+        rep = kernelcheck.check(cfg, trace=not static, device=device)
+    for line in kernelcheck.render_text(rep):
+        _print(quiet, line)
+    return rep
+
+
+def run_index(engine, nodes, mutation, max_states, quiet, device=None,
+              tally=None) -> dict:
+    """The index-pressure prong (analysis/indexcheck.py): the aten index
+    inventory, plane attribution, indices/instr probes, merge detection
+    and budget enforcement. A seeded index mutation skips the probe
+    runs — the mutant is semantics-preserving by construction, so only
+    the static pass can kill it — and the run must then FAIL with the
+    documented budget breach AND name the split planes as merge
+    candidates (asserted here: a mutant the auditor misses is itself a
+    finding)."""
+    from ue22cs343bb1_openmp_assignment_tpu_torch.analysis import (
+        indexcheck, mutations)
+    imut = mutations.INDEX_MUTATIONS.get(mutation) if mutation else None
+    if mutation is not None and imut is None and \
+            mutation not in mutations.MUTATIONS:
+        raise SystemExit(
+            f"unknown mutation `{mutation}` (index mutations: "
+            f"{', '.join(mutations.INDEX_MUTATIONS)})")
+
+    engines = None if engine is None else [engine]
+    nodes = indexcheck.DEFAULT_NODES if nodes is None else nodes
+    if imut is not None:
+        engines = engines or ["async"]   # the seam lives in step.cycle
+        _print(quiet, f"== seeded index mutation `{mutation}` "
+                      f"(expected finding: {imut[1]})")
+        with imut[0]():
+            rep = indexcheck.check(engines=engines, nodes=nodes,
+                                   probe=False, device=device)
+        kinds = [f["kind"] for f in rep["findings"]]
+        cands = [c for er in rep["engines"].values()
+                 for c in er["merge_candidates"]
+                 if c["scope"].startswith("step.cycle")]
+        rep["expected_kind"] = imut[1]
+        rep["mutant_killed"] = bool((not rep["ok"]) and imut[1] in kinds
+                                    and cands)
+        if not rep["mutant_killed"]:
+            # the auditor MISSED a seeded bug: that is the failure
+            rep["ok"] = False
+            rep["findings"].append({
+                "pass": "mutation", "kind": "mutant_survived",
+                "detail": f"seeded index mutation `{mutation}` was not "
+                          f"caught (expected `{imut[1]}` + merge "
+                          f"candidates in step.cycle, got "
+                          f"{kinds or 'no findings'} and "
+                          f"{len(cands)} candidates)"})
+    else:
+        rep = indexcheck.check(engines=engines, nodes=nodes, probe=True,
+                               probe_budget=min(max_states, 4096),
+                               device=device)
+    for line in indexcheck.render_text(rep):
+        _print(quiet, line)
+    return rep
 
 
 def run_table(scope_names, mutation, max_states, quiet, device=None,
@@ -519,18 +648,9 @@ def main(argv=None) -> int:
                       + "; ".join(f"{op} a={a} v={v}" for op, a, v in prog))
         return 0
 
-    for flag, on in (("--jaxpr", args.jaxpr), ("--kernel", args.kernel),
-                     ("--index", args.index)):
-        if on:
-            return _later(f"{flag}, {LATER_PRONGS[flag]},")
-    from ue22cs343bb1_openmp_assignment_tpu_torch.analysis import mutations
-    if args.mutation in mutations.LATER_MUTATIONS:
-        return _later(f"`{args.mutation}`, a mutation of the --kernel / "
-                      "--index prongs,")
-
     device = None
     if (not args.skip_model_check or args.litmus or args.table
-            or args.fuzz > 0):
+            or args.fuzz > 0 or args.jaxpr or args.kernel or args.index):
         from ue22cs343bb1_openmp_assignment_tpu_torch import device as _dev
         try:
             device = _dev.resolve("cpu" if args.cpu else None)
@@ -594,6 +714,21 @@ def main(argv=None) -> int:
         prongs["lint"] = {"seconds": time.perf_counter() - t0,
                           "oracle_batches": 0}
         ok &= report["lint"]["ok"]
+    if args.jaxpr:
+        report["jaxpr"] = prong("jaxpr", run_jaxpr, args.quiet)
+        ok &= report["jaxpr"]["ok"]
+    if args.kernel:
+        report["kernel"] = prong("kernel", run_kernel, args.kernel_nodes,
+                                 args.kernel_static, args.mutation,
+                                 args.quiet)
+        ok &= report["kernel"]["ok"]
+    if args.index:
+        report["index"] = prong("index", run_index, args.index_engine,
+                                args.index_nodes, args.mutation,
+                                args.max_states, args.quiet)
+        if report["index"].get("budget_exhausted"):
+            exhausted = True
+        ok &= report["index"]["ok"]
     if args.fuzz > 0:
         report["fuzz"] = prong("fuzz", run_fuzz, args.fuzz, args.seed,
                                args.mutation, args.repro_dir, args.quiet,

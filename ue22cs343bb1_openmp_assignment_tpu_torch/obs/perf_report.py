@@ -20,11 +20,14 @@ deep engine takes the fold kernels (``csrc/deep_fold.cu``);
 The sync engine here runs a stored trace, which no kernel takes, so
 ``--pallas`` prints JAX's note there, as it does on the CPU.
 
-Left out: JAX's ``vmem`` and ``index`` blocks, built by the jaxpr
-walkers ``analysis/kernelcheck.vmem_rows`` and
-``analysis/indexcheck.index_row`` (ROADMAP.md Queue 1 item 7); the text
-report says so in one line. Without ``--timing`` the document is
-byte-identical across runs.
+As JAX's, the document carries a ``vmem`` block on the deep engine
+(``analysis/kernelcheck.vmem_rows``: the deep kernels' shared memory a
+block, from their layout formulas, against the H100's 227 KiB) and an
+``index`` block on every engine (``analysis/indexcheck.index_row``: the
+hot body's aten index sites and indices a step by plane, recorded on
+the report's device, with indices a simulated instruction from the same
+steps and retired count as bytes/instr). Without ``--timing`` the
+document is byte-identical across runs.
 
 Named ``perf_report.py`` because ``cli.py`` is the port's top-level CLI.
 """
@@ -37,12 +40,6 @@ import sys
 import time
 
 from ue22cs343bb1_openmp_assignment_tpu_torch.obs import verbs
-
-#: the one line the text report adds where JAX prints its vmem and
-#: index blocks
-LEFT_OUT = ("  vmem and index blocks: not in the port (JAX's jaxpr "
-            "walkers; ROADMAP.md Queue 1 item 7)")
-
 
 # lint: host
 def build_perfreport_parser() -> argparse.ArgumentParser:
@@ -229,6 +226,24 @@ def cmd_perfreport(args, dev) -> int:
                 fused["hbm_bytes"] * steps / retired, 6),
             "unfused_bytes_per_instr": doc["bytes_per_instr"],
         }
+    if args.engine == "deep":
+        # the deep kernels' shared-memory rows, from the kernel-contract
+        # verifier's layout formulas (deterministic arithmetic; the
+        # libraries' own entries are `analyze --kernel`'s job)
+        from ue22cs343bb1_openmp_assignment_tpu_torch.analysis import (
+            kernelcheck)
+        doc["vmem"] = kernelcheck.vmem_rows(
+            cfg, device_kind=args.device_kind)
+    # the index-pressure row (analysis/indexcheck): the hot body's index
+    # sites by plane, with indices/instr from the same (steps, retired)
+    # integers that pin bytes/instr above
+    from ue22cs343bb1_openmp_assignment_tpu_torch.analysis import (
+        indexcheck)
+    if args.engine in indexcheck.ENGINES and retired:
+        doc["index"] = indexcheck.index_row(args.engine, args.nodes,
+                                            device=dev)
+        doc["index"]["indices_per_instr"] = round(
+            doc["index"]["indices_per_step"] * steps / retired, 3)
     if args.profile:
         # the protocol-behavior sibling of the kernel table: the same
         # pinned (steps, retired) run, replayed under the coherence
@@ -265,7 +280,7 @@ def cmd_perfreport(args, dev) -> int:
     if args.json:
         verbs._emit(args, doc)
     else:
-        text = roofline.render_text(doc) + LEFT_OUT + "\n"
+        text = roofline.render_text(doc)
         if "profile" in doc:
             from ue22cs343bb1_openmp_assignment_tpu_torch.obs import cohprof
             text += "\n" + cohprof.render_text(doc["profile"]) + "\n"

@@ -279,9 +279,10 @@ class _DispatchCounter:
     fingerprint (each distinct line interned once) and the sums of the
     non-view, non-allocating ops."""
 
-    def __init__(self, wrappers: dict):
+    def __init__(self, wrappers: dict, observer=None):
         import torch
         self.tensor = torch.Tensor
+        self.observer = observer
         self.names = list(wrappers)
         self.wrappers = list(wrappers.values())
         self.start = self.last = self.launch_vector()
@@ -310,6 +311,8 @@ class _DispatchCounter:
             for k, a, b in zip(self.names, self.last, now):
                 if b != a:
                     self._line(("kernel", k, b - a))
+                    if self.observer is not None:
+                        self.observer.kernel(k, b - a)
             self.last = now
 
     def launches(self) -> dict:
@@ -364,12 +367,18 @@ def _find_cfg(args):
 
 # lint: host
 def dispatch_run(fn, args, cfg=None, contracts: Optional[dict] = None,
-                 memory: bool = False):
+                 memory: bool = False, observer=None):
     """Run ``fn(*copied args)`` once under the counting dispatch mode:
     ``(output, counter, launches, temp_bytes)``. ``launches`` is
     ``{kernel: launches}`` of the call; ``temp_bytes`` (``memory`` on a
     CUDA call only, else None) the peak device memory the call
-    allocated above what was live before it."""
+    allocated above what was live before it.
+
+    ``observer`` (the analysis gate's aten walkers) sees the same
+    stream: ``observer.start(copied_args)`` before the call, then
+    ``observer.op(func, args, kwargs, out)`` for every aten op and
+    ``observer.kernel(name, launches)`` where the port's kernels
+    launched between two ops."""
     import copy
 
     import torch
@@ -378,12 +387,16 @@ def dispatch_run(fn, args, cfg=None, contracts: Optional[dict] = None,
     from ue22cs343bb1_openmp_assignment_tpu_torch import bench
     args = copy.deepcopy(args)
     cfg = cfg if cfg is not None else _find_cfg(args)
-    ctr = _DispatchCounter(bench.counted_wrappers())
+    ctr = _DispatchCounter(bench.counted_wrappers(), observer)
+    if observer is not None:
+        observer.start(args)
 
     class _Mode(TorchDispatchMode):
         def __torch_dispatch__(self, func, types, a=(), kw=None):
             out = func(*a, **(kw or {}))
             ctr.op(func, a, kw, out)
+            if observer is not None:
+                observer.op(func, a, kw, out)
             return out
 
     on_card = any(t.is_cuda for t in tensor_leaves(args))

@@ -53,6 +53,14 @@ from ue22cs343bb1_openmp_assignment_tpu_torch.types import (CacheState, Op,
 # dense per-own-entry flag bits (fold output, gathered by remote events)
 F_MARK, F_POISON = 1, 2
 
+#: width of the requester-id field of DM_REQ and of the fan-out's line
+#: word: node ids sit below 1 << REQ_BITS, the read storm's canonical
+#: "matches nobody" requester is the all-ones field, the round-value
+#: channel sits above the field in DM_REQ and the line's action bits
+#: above it in the fan-out word. csrc/deep_round.cu packs the same
+#: layout; analysis/kernelcheck derives both words' budgets from it.
+REQ_BITS = 16
+
 #: column order of the per-address / per-node abort-attribution planes
 #: (round_step_deep(return_profile=True) / run_deep_profile): a slot
 #: failed to commit because a GHOST poison flag (never confirmed by the
@@ -469,7 +477,7 @@ def deep_round_core(cfg: SystemConfig, dm0, round_, seed, pre,
         prev_fresh = (r_act >> 11) == round_
         # the round-value channel rides DM_REQ's high bits
         rv_got = torch.where(prev_fresh,
-                             (g_rows[..., DM_REQ] >> 16) & 0x3FF, 0)
+                             (g_rows[..., DM_REQ] >> REQ_BITS) & 0x3FF, 0)
         own_val = torch.where(
             r_pend, r_mem,
             ix.gather(cv_req_m.reshape(-1),
@@ -595,13 +603,13 @@ def deep_round_core(cfg: SystemConfig, dm0, round_, seed, pre,
         # scatter rows stay bit-identical
         if is_storm:
             multi = (kr + ke) >= 2
-            req_col = torch.where(multi, 0xFFFF, req_id)
+            req_col = torch.where(multi, (1 << REQ_BITS) - 1, req_id)
             key_col = torch.where(multi, g_rows[..., DM_CLAIM], key_q)
         else:
             req_col, key_col = req_id, key_q
         t_rows = torch.stack(
             [n_state, n_cnt, n_own, n_mem, n_act,
-             req_col | (rv_new << 16), key_col],
+             req_col | (rv_new << REQ_BITS), key_col],
             dim=-1).reshape(-1, DM_COLS)
         dm = ix.scatter_rows(dm, t_idx, t_rows)
 
@@ -639,20 +647,22 @@ def deep_round_core(cfg: SystemConfig, dm0, round_, seed, pre,
     aw = torch.stack(aw_rows, dim=0)
 
     # ---- fan-out ---------------------------------------------------------
-    # per-entry packed word, gathered once per cached line: bit 27
-    # fresh, 25-26 act_h, 24 promo, 20-23 kw, 16-19 dw, 0-15 requester
+    # per-entry packed word, gathered once per cached line (REQ_BITS
+    # 16): bit 27 fresh, 25-26 act_h, 24 promo, 20-23 kw, 16-19 dw,
+    # 0-15 requester
     line_e = torch.clamp(ca_c, 0, E - 1)                     # [C, N]
     fan_fresh = (dm[:, DM_ACT] >> 11) == round_
+    rb, req_mask = REQ_BITS, (1 << REQ_BITS) - 1
     fan_packed = (torch.where(fan_fresh,
-                              ((dm[:, DM_ACT] & 0x7FF) | 0x800) << 16, 0)
-                  | (dm[:, DM_REQ] & 0xFFFF))
+                              ((dm[:, DM_ACT] & 0x7FF) | 0x800) << rb, 0)
+                  | (dm[:, DM_REQ] & req_mask))
     line_f = ix.gather(fan_packed, line_e)                   # [C, N]
-    fresh = ((line_f >> 27) & 1) == 1
-    l_ah = torch.where(fresh, (line_f >> 25) & 3, ACT_NONE)
-    l_promo = fresh & (((line_f >> 24) & 1) == 1)
-    l_kw = torch.where(fresh, (line_f >> 20) & 15, 0)
-    l_dw = torch.where(fresh, (line_f >> 16) & 15, 0)
-    l_req = line_f & 0xFFFF
+    fresh = ((line_f >> (rb + 11)) & 1) == 1
+    l_ah = torch.where(fresh, (line_f >> (rb + 9)) & 3, ACT_NONE)
+    l_promo = fresh & (((line_f >> (rb + 8)) & 1) == 1)
+    l_kw = torch.where(fresh, (line_f >> (rb + 4)) & 15, 0)
+    l_dw = torch.where(fresh, (line_f >> rb) & 15, 0)
+    l_req = line_f & req_mask
     l_home = line_e >> cfg.block_bits
     i_am_home = l_home == rows[None, :]
     valid = cs_c != INV

@@ -87,33 +87,49 @@ class Library:
             self._loaded[defs] = lib
         return self._loaded[defs]
 
+    def ptxas_log(self, cfg) -> str:
+        """What ``nvcc -Xptxas -v`` said when the library for ``cfg``
+        was built; empty if it was not built here."""
+        _, ptxas = self.paths(self.defines(cfg))
+        return ptxas.read_text() if ptxas.exists() else ""
+
     def ptxas_summary(self, cfg) -> dict:
         """{kernel: {"registers", "stack", "spill_stores",
-        "spill_loads"}} from what ``nvcc -Xptxas -v`` said when the
-        library for ``cfg`` was built; empty if it was not built here."""
-        _, ptxas = self.paths(self.defines(cfg))
-        report = ptxas.read_text() if ptxas.exists() else ""
-        out, cur = {}, None
-        for line in report.splitlines():
-            m = re.search(r"Compiling entry function '(\S+)'", line)
+        "spill_loads", "smem"}} from the library's ptxas log
+        (:func:`parse_ptxas`); empty if it was not built here."""
+        return parse_ptxas(self.ptxas_log(cfg), self.kernels)
+
+
+def parse_ptxas(report: str, kernels: dict) -> dict:
+    """{kernel: {"registers", "stack", "spill_stores", "spill_loads",
+    "smem"}} from the text of ``nvcc -Xptxas -v``; ``kernels`` maps a
+    regex on an entry function's name to the short name it is reported
+    under (``Library.kernels``). ``smem`` is the static shared memory
+    ptxas reports (0 where it reports none)."""
+    out, cur = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = next((short for pat, short in kernels.items()
+                        if re.search(pat, m.group(1))), None)
+            if cur is not None:
+                out[cur] = {"smem": 0}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                      r"stores, (\d+) bytes spill loads", line)
+        if m:
+            out[cur].update(stack=int(m.group(1)),
+                            spill_stores=int(m.group(2)),
+                            spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
             if m:
-                cur = next((short for pat, short in self.kernels.items()
-                            if re.search(pat, m.group(1))), None)
-                if cur is not None:
-                    out[cur] = {}
-                continue
-            if cur is None:
-                continue
-            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
-                          r"stores, (\d+) bytes spill loads", line)
-            if m:
-                out[cur].update(stack=int(m.group(1)),
-                                spill_stores=int(m.group(2)),
-                                spill_loads=int(m.group(3)))
-            m = re.search(r"Used (\d+) registers", line)
-            if m:
-                out[cur]["registers"] = int(m.group(1))
-        return out
+                out[cur]["smem"] = int(m.group(1))
+    return out
 
 
 def check_operand(kernel: str, name: str, t, shape: tuple, device) -> None:
@@ -142,6 +158,7 @@ def build(jobs) -> dict:
         if (lib.name, defs) in procs or so.exists():
             continue
         tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+        build.nvcc_runs += 1
         proc = subprocess.Popen(lib.command(defs, tmp),
                                 stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
@@ -160,3 +177,7 @@ def build(jobs) -> dict:
     if errors:
         raise RuntimeError("\n".join(errors))
     return took
+
+
+#: nvcc processes started by ``build`` in this process
+build.nvcc_runs = 0

@@ -18,11 +18,13 @@ reads the quiescence flag (one host sync) only between ``chunk``-cycle
 blocks, where the JAX runner's ``while_loop`` tests it, so cycle counts
 agree with the reference; ``run_to_quiescence`` is chunk 1.
 
-Only the packed commit of the JAX cycle is ported (its ``_PACKED_COMMIT``
-seam serves the JAX index auditor). Each family's row commit is a
-one-hot ``where`` over the row's columns: the same writes as the JAX
-drop-scatter, whose kept lanes are one per node. ``run_cycles_traced``
-stacks the per-cycle event record.
+The shipped commit writes each family's row as a one-hot ``where`` over
+the row's columns: the same writes as the JAX packed drop-scatter, whose
+kept lanes are one per node, with no index site. ``_PACKED_COMMIT`` is
+the JAX seam the index auditor's seeded mutation flips (``False``: one
+gather and one ``index_put_`` a plane on a shared index vector,
+bit-identical, caught only by ``analyze --index``).
+``run_cycles_traced`` stacks the per-cycle event record.
 
 The observability captures (JAX ``ops/step.py:39-80``, ``:449-651``):
 ``with_telemetry`` (the per-cycle counter deltas, dequeues by type,
@@ -124,6 +126,18 @@ def profile_zeros(cfg: SystemConfig, device=None) -> dict:
     }
 
 
+#: commit-path seam for the index-pressure auditor's seeded mutation
+#: (analysis/mutations.INDEX_MUTATIONS.split_packed_scatter, JAX
+#: ``ops/step.py:123-131``). True = the shipped commit: each family's
+#: row as a one-hot ``where``, no index site. False = a per-plane
+#: commit: one gather and one ``index_put_`` a plane, every plane of a
+#: family on one shared index vector, unset columns writing back their
+#: gathered old value. Bit-identical to the shipped commit, so every
+#: dynamic oracle stays green; only the static index audit
+#: (analysis/indexcheck.py) sees it. Production code never flips this.
+_PACKED_COMMIT = True
+
+
 def cycle(cfg: SystemConfig, state: SimState, with_events: bool = False,
           message_phase=None, with_telemetry: bool = False,
           with_ledger: bool = False, with_obs: bool = False,
@@ -174,15 +188,18 @@ def cycle(cfg: SystemConfig, state: SimState, with_events: bool = False,
     cidx = torch.where(has, m_upd["cache_idx"], f_upd["cache_idx"])
     c_hot = cidx[:, None] == torch.arange(C, dtype=I32, device=dev)
 
-    def commit(plane, key):
+    def intent(key):
         (mm, mval), (fm, fval) = m_upd[key], f_upd[key]
-        mask = torch.where(has, mm, fm)
-        val = torch.where(has, mval, fval)
-        return torch.where(c_hot & mask[:, None], val[:, None], plane)
+        return torch.where(has, mm, fm), torch.where(has, mval, fval)
 
-    cache_state = commit(state.cache_state, "cache_state")
-    cache_addr = commit(state.cache_addr, "cache_addr")
-    cache_val = commit(state.cache_val, "cache_val")
+    if _PACKED_COMMIT:
+        def commit(plane, key):
+            mask, val = intent(key)
+            return torch.where(c_hot & mask[:, None], val[:, None], plane)
+
+        cache_state = commit(state.cache_state, "cache_state")
+        cache_addr = commit(state.cache_addr, "cache_addr")
+        cache_val = commit(state.cache_val, "cache_val")
 
     # memory / directory: the handlers emit one block index for all
     # three (p_block); the first set mask's index is authoritative
@@ -190,12 +207,39 @@ def cycle(cfg: SystemConfig, state: SimState, with_events: bool = False,
     dm, di, dval = m_upd["dir_state"]
     bm, bi, bval = m_upd["dir_bv"]
     hidx = torch.where(mm, mi, torch.where(dm, di, bi))
-    h_hot = hidx[:, None] == torch.arange(M, dtype=I32, device=dev)
-    memory = torch.where(h_hot & mm[:, None], mval[:, None], state.memory)
-    dir_state = torch.where(h_hot & dm[:, None], dval[:, None],
-                            state.dir_state)
-    dir_bitvec = torch.where((h_hot & bm[:, None])[..., None],
-                             bval[:, None, :], state.dir_bitvec)
+    if _PACKED_COMMIT:
+        h_hot = hidx[:, None] == torch.arange(M, dtype=I32, device=dev)
+        memory = torch.where(h_hot & mm[:, None], mval[:, None],
+                             state.memory)
+        dir_state = torch.where(h_hot & dm[:, None], dval[:, None],
+                                state.dir_state)
+        dir_bitvec = torch.where((h_hot & bm[:, None])[..., None],
+                                 bval[:, None, :], state.dir_bitvec)
+    else:
+        # the seam's mutant path (never shipped): one gather and one
+        # index_put_ a plane, each family's planes sharing one index
+        # vector; a node whose mask is unset writes its gathered old
+        # value back at the clipped index (one lane a node, so no two
+        # writes meet). An index out of range goes with an unset mask,
+        # as in the one-hot commit.
+        clip_c = cidx.clamp(0, C - 1)
+        clip_h = hidx.clamp(0, M - 1)
+
+        def plane_commit(plane, mask, val, clip):
+            old = plane[rows, clip]
+            keep = mask.reshape(mask.shape + (1,) * (old.ndim - 1))
+            return plane.clone().index_put_(
+                (rows, clip), torch.where(keep, val, old))
+
+        cache_state = plane_commit(state.cache_state,
+                                   *intent("cache_state"), clip_c)
+        cache_addr = plane_commit(state.cache_addr, *intent("cache_addr"),
+                                  clip_c)
+        cache_val = plane_commit(state.cache_val, *intent("cache_val"),
+                                 clip_c)
+        memory = plane_commit(state.memory, mm, mval, clip_h)
+        dir_state = plane_commit(state.dir_state, dm, dval, clip_h)
+        dir_bitvec = plane_commit(state.dir_bitvec, bm, bval, clip_h)
 
     waiting = (state.waiting & ~m_upd["wait_clear"]) | f_upd["wait_set"]
     # stall-watchdog input: the cycle the current wait began (-1 idle)
